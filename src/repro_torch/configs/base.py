@@ -1,0 +1,97 @@
+"""Configuration schema for the Nightjar reproduction framework (a copy of
+the reference's :class:`ModelConfig`).  Configs are frozen dataclasses, so
+they hash and can key caches.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description covering all assigned families."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- attention details -------------------------------------------------
+    qk_norm: bool = False          # qwen3
+    qkv_bias: bool = False         # qwen2
+    rope_theta: float = 10_000.0
+    pos_embedding: str = "rope"    # rope | learned | none
+    logit_softcap: float = 0.0
+    max_position_embeddings: int = 1_048_576
+
+    # --- mlp / norms --------------------------------------------------------
+    mlp_type: str = "swiglu"       # swiglu | geglu | gelu
+    norm_type: str = "rmsnorm"     # rmsnorm | layernorm
+    rmsnorm_offset: bool = False   # gemma's (1 + scale) convention
+    embed_scale: bool = False      # gemma multiplies embeddings by sqrt(d)
+    tie_embeddings: bool = True
+
+    # --- mixture of experts --------------------------------------------------
+    moe_num_experts: int = 0
+    moe_top_k: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_groups: int = 1   # hierarchical dispatch groups (== batch shards)
+
+    # --- state space (mamba2 / SSD) ------------------------------------------
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_ngroups: int = 1
+
+    # --- hybrid (zamba2) ------------------------------------------------------
+    hybrid_attn_every: int = 0     # apply shared attention block every N layers
+
+    # --- encoder-decoder (whisper) ---------------------------------------------
+    enc_layers: int = 0
+    dec_layers: int = 0
+    cross_attention: bool = False
+    enc_context: int = 1500        # whisper 30s window (decoder cross-KV length)
+
+    # --- vlm (paligemma) ---------------------------------------------------------
+    num_image_tokens: int = 0      # bidirectional prefix length
+
+    # --- numerics / compilation ---------------------------------------------------
+    dtype: str = "bfloat16"
+    scan_layers: bool = True       # stack layer params & lax.scan over layers
+    unroll_scans: bool = False     # unroll inner scans (exact HLO flop counts)
+    remat: str = "none"            # none | full | dots
+    attn_chunk: int = 1024         # kv-chunk for blockwise prefill attention
+    xent_chunk: int = 512          # sequence chunk for streamed cross entropy
+
+    # -------------------------------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM / hybrid families)."""
+        return self.family in ("ssm", "hybrid")
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
