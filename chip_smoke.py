@@ -18,7 +18,20 @@ Phases (any failed check raises, and the script exits non-zero):
                stream under Nightjar equals the AR stream, with the paper's
                draft and with the target as its own draft (which accepts);
   5. elastic — the elastic memory manager offloads the draft on a 24-block
-               pool and the streams equal an unmanaged run.
+               pool and the streams equal an unmanaged run;
+  6. dense_serve — the dense-cache path: the same pair and requests as
+               phase 3 through ``DenseSlotBackend`` (monolithic prefill one
+               prompt at a time through the flash-attention kernel, dense
+               spec / AR steps, draft catch-ups by re-prefill);
+  7. dense_lossless — fp32 at full width and cut depth: the dense Nightjar,
+               dense AR, paged and dense target-as-draft streams are equal;
+  8. cswitch — the paper's Table 3 on the card: the full-width bf16 draft's
+               dense prefill timed on the (delta, batch) grid through
+               ``CSwitchTable.profile``.
+
+Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
+TF32 off, and bf16) and times it beside its bound, the plain version and
+``scaled_dot_product_attention``.
 
 Every line printed is a JSON object; the last is the run's verdict.  Needs a
 CUDA device and the repository's ``src/``; it refuses to run otherwise.
@@ -37,9 +50,26 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 TARGET_ATTN = dict(H=28, KH=4, D=128)          # paper-7b target
 DRAFT_ATTN = dict(H=14, KH=2, D=64)            # paper-7b draft
 REF_SWEEP = [(2, 4, 4, 64, 16, 3), (3, 8, 2, 64, 16, 4), (2, 8, 1, 128, 8, 5)]
+# flash attention checks: (B, Sq, Sk, H, KH, D, causal, prefix_len)
+FLASH_CASES = [
+    (2, 256, 256, 4, 4, 64, True, 0), (2, 256, 256, 4, 4, 64, False, 0),
+    (1, 128, 128, 8, 2, 128, True, 0), (2, 384, 384, 4, 1, 64, False, 0),
+    (1, 16, 16, 28, 4, 128, True, 0), (2, 37, 37, 28, 4, 128, True, 5),
+    (1, 200, 200, 28, 4, 128, True, 130), (2, 384, 384, 28, 4, 128, True, 0),
+    (2, 37, 37, 14, 2, 64, True, 0), (1, 200, 200, 14, 2, 64, True, 0),
+    (2, 37, 200, 14, 2, 64, False, 0), (1, 384, 384, 14, 2, 64, True, 3),
+    (1, 200, 200, 4, 4, 128, True, 0), (2, 37, 37, 4, 4, 64, False, 0),
+    (1, 37, 37, 4, 2, 32, True, 0)]
+# flash attention timings (bf16, causal): label, B, S, H, KH, D
+FLASH_TIMED = [("dense serve prefill", 1, 16, 28, 4, 128),
+               ("C_switch delta=128 B=2", 2, 128, 14, 2, 64),
+               ("C_switch delta=256 B=8", 8, 256, 14, 2, 64),
+               ("C_switch delta=512 B=32", 32, 512, 14, 2, 64),
+               ("long target prefill", 1, 2048, 28, 4, 128)]
 CARD = {}
 
 
@@ -284,6 +314,79 @@ def phase_kernels(torch):
     return err, attn_rows, mig_rows
 
 
+def flash_bound(B, S, H, KH, D, dtype_name, es):
+    """Least time of one causal call: 4 * D flops per visible (query, key)
+    pair and head (S (S + 1) / 2 pairs) over the type's peak, against q, k
+    and v read once and the output written once over HBM bandwidth."""
+    flops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = es * B * S * D * (2 * H + 2 * KH)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash(torch):
+    """flash_attention against its plain version, then its times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def inputs(B, Sq, Sk, H, KH, D, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D))]
+
+    worst = {}
+    for dtype_name in ("float32", "bfloat16"):
+        worst[dtype_name] = 0.0
+        for B, Sq, Sk, H, KH, D, causal, prefix in FLASH_CASES:
+            args = inputs(B, Sq, Sk, H, KH, D, getattr(torch, dtype_name))
+            got = flash_attention(*args, causal=causal, prefix_len=prefix)
+            want = flash_attention_ref(*args, causal=causal,
+                                       prefix_len=prefix)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), (B, Sq, Sk, H, KH, D)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= FLASH_ATOL[dtype_name], (dtype_name, B, Sq, Sk, H,
+                                                   KH, D, causal, prefix, err)
+            worst[dtype_name] = max(worst[dtype_name], err)
+    emit("check", kernel="flash_attention", cases=len(FLASH_CASES),
+         max_abs_err=worst, atol=FLASH_ATOL)
+
+    flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    rows = []
+    for label, B, S, H, KH, D in FLASH_TIMED:
+        q, k, v = inputs(B, S, S, H, KH, D, torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_ref(q, k, v, causal=True)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (lib.transpose(1, 2).float() - want.float()).abs().max()
+        assert err <= FLASH_ATOL["bfloat16"], (label, err)
+        assert lib_err.item() <= FLASH_ATOL["bfloat16"], (label, lib_err)
+        bound, by = flash_bound(B, S, H, KH, D, "bfloat16", q.element_size())
+        rows.append(dict(
+            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D}",
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+                       flush=flush),
+            plain_ms=cuda_ms(torch, lambda: flash_attention_ref(
+                q, k, v, causal=True), flush=flush, iters=10),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
+            bound_ms=bound, bound_by=by))
+        del q, k, v, qt, kt, vt, got, want, lib
+    del flush
+    torch.cuda.empty_cache()
+    for row in rows:
+        emit("time", kernel="flash_attention", **row)
+    return max([worst["bfloat16"]] + [r["max_abs_err"] for r in rows]), rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the serving path
 # ---------------------------------------------------------------------------
@@ -307,18 +410,22 @@ def streams(engine, reqs):
         :r.output_len + 1] for r in reqs}
 
 
-def reset_counts():
+def _wrappers():
     from repro_torch.kernels.block_migration import migrate_blocks
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_attention
-    paged_attention.launches = 0
-    migrate_blocks.launches = 0
+    return {"paged_attention": paged_attention,
+            "migrate_blocks": migrate_blocks,
+            "flash_attention": flash_attention}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels.block_migration import migrate_blocks
-    from repro_torch.kernels.paged_attention import paged_attention
-    return {"paged_attention": paged_attention.launches,
-            "migrate_blocks": migrate_blocks.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def check_run(m, reqs, outs, vocab):
@@ -365,6 +472,7 @@ def phase_serve(torch):
     assert spec_steps >= 1, m.spec
     assert counts["paged_attention"] > 0 and counts["migrate_blocks"] > 0, \
         counts
+    assert counts["flash_attention"] == 0, counts
     emit("serve", model="paper-7b full width and depth, bf16",
          target_layers=cfg.num_layers, draft_layers=dcfg.num_layers,
          setup_s=setup_s, warmup_s=warm_s, wall_s=wall,
@@ -376,9 +484,9 @@ def phase_serve(torch):
          step_ms={g: 1e3 * v["latency_s"] / v["steps"]
                   for g, v in m.spec["per_gamma"].items()},
          summary=m.summary())
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
-    return counts
+    return counts, params
 
 
 def fp32_cut(depth=4):
@@ -471,9 +579,145 @@ def phase_elastic(params):
 
 
 # ---------------------------------------------------------------------------
+# phases 6-8: the dense-cache path
+# ---------------------------------------------------------------------------
 
 
-def kernel_line(err, attn_rows, mig_rows, counts):
+def dense_engine(cfg, dcfg, params, *, policy="nightjar"):
+    """``build_dense_engine`` with a counter of draft catch-ups around the
+    backend's ``draft_catchup``."""
+    from repro_torch.launch.serve import build_dense_engine
+    engine = build_dense_engine(cfg, dcfg, device="cuda", policy=policy,
+                                params=params)
+    be = engine.backend
+    be.catchups = {"calls": 0, "tokens": 0, "seconds": 0.0}
+    catchup = be.draft_catchup
+
+    def counted(seqs):
+        lagging = [s.delta for s in seqs if s.delta > 0]
+        dt = catchup(seqs)
+        if lagging and be.draft_resident:
+            be.catchups["calls"] += 1
+            be.catchups["tokens"] += sum(lagging)
+            be.catchups["seconds"] += dt
+        return dt
+
+    be.draft_catchup = counted
+    return engine
+
+
+def phase_dense_serve(torch, params):
+    """phase_serve's pair, weights and requests through DenseSlotBackend."""
+    from repro_torch import configs
+    cfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
+    dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    t0 = time.perf_counter()
+    dense_engine(cfg, dcfg, params).run(requests(cfg.vocab_size, n=4,
+                                                 seed=1), max_steps=5000)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = dense_engine(cfg, dcfg, params)
+    reqs = requests(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = engine.run(reqs, max_steps=5000, record_timeline=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    outs = streams(engine, reqs)
+    check_run(m, reqs, outs, cfg.vocab_size)
+    assert counts["flash_attention"] > 0, counts
+    assert m.spec.get("spec_steps", 0) >= 1, m.spec
+    emit("dense_serve", model="paper-7b full width and depth, bf16, "
+         "DenseSlotBackend", warmup_s=warm_s, wall_s=wall,
+         output_tokens=m.total_tokens, tokens_per_s=m.total_tokens / wall,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         requests_finished=len(m.requests),
+         spec_steps=m.spec["spec_steps"], draft_catchups=engine.backend.catchups,
+         launches=counts,
+         step_ms={g: 1e3 * v["latency_s"] / v["steps"]
+                  for g, v in m.spec["per_gamma"].items()},
+         summary=m.summary())
+    return counts
+
+
+def phase_dense_lossless(torch, params):
+    """The reference's test_paged_engine_matches_dense_engine on the card:
+    dense Nightjar, dense AR, paged Nightjar and dense target-as-draft
+    greedy streams are equal on every request."""
+    from repro_torch.launch.serve import build_real_engine
+    cfg, dcfg = fp32_cut()
+    runs = (("dense nightjar", lambda: dense_engine(cfg, dcfg, params)),
+            ("dense ar", lambda: dense_engine(cfg, dcfg, params,
+                                              policy="ar")),
+            ("paged nightjar", lambda: build_real_engine(
+                cfg, dcfg, device="cuda", policy="nightjar", memmgr=False,
+                seed=0, params=params)),
+            ("dense nightjar, draft = target", lambda: dense_engine(
+                cfg, cfg, (params[0], params[0]))))
+    out, accepted = {}, {}
+    for name, make in runs:
+        engine = make()
+        reqs = requests(cfg.vocab_size)
+        reset_counts()
+        m = engine.run(reqs, max_steps=5000, record_timeline=True)
+        counts = read_counts()
+        out[name] = streams(engine, reqs)
+        check_run(m, reqs, out[name], cfg.vocab_size)
+        accepted[name] = sum(g["accepted"] for gam, g in
+                             m.spec.get("per_gamma", {}).items() if gam > 0)
+        key = "paged_attention" if name.startswith("paged") \
+            else "flash_attention"
+        assert counts[key] > 0, (name, counts)
+        emit("dense_lossless_run", run=name, spec=m.spec_summary(),
+             accepted_tokens=accepted[name], launches=counts)
+        del engine
+    assert accepted["dense nightjar, draft = target"] > 0, accepted
+    for name in out:
+        assert out[name] == out["dense ar"], f"fp32 {name} stream != AR"
+    emit("dense_lossless", model=f"paper-7b full width, {cfg.num_layers} "
+         f"target + {dcfg.num_layers} draft layers, fp32, TF32 off",
+         requests=len(out["dense ar"]), equal=True, runs=list(out),
+         accepted_tokens=accepted)
+
+
+def phase_cswitch(torch, dparams):
+    """Table 3 of the paper (the reference's benchmarks/run.py real tier):
+    C_switch(delta, B) = host time of the full-width bf16 draft's dense
+    prefill of B sequences of delta tokens into a 600-position cache, after
+    one warm-up call per shape."""
+    from repro_torch import configs
+    from repro_torch.core.cswitch import CSwitchTable
+    from repro_torch.models import registry
+    api = registry.get_model(configs.get_draft_config("paper-7b").replace(
+        dtype="bfloat16"))
+
+    def measure(delta, batch):
+        batch_in = {"tokens": torch.zeros((batch, delta), dtype=torch.long,
+                                          device="cuda")}
+        api.prefill(dparams, batch_in, 600)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.prefill(dparams, batch_in, 600)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    reset_counts()
+    table = CSwitchTable.profile(measure, deltas=(128, 256, 512),
+                                 batches=(2, 8, 32))
+    counts = read_counts()
+    assert counts["flash_attention"] > 0, counts
+    emit("cswitch", model="paper-7b draft (qwen2.5-0.5B layout), full width "
+         "and depth, bf16", ms={f"delta={d} B={b}": 1e3 * v
+                                for (d, b), v in sorted(table.table.items())},
+         launches=counts)
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, counts):
     def entry(name, src, replaces, rows, err, launches):
         top = rows[0]
         return {"name": name, "route": "cuda", "source": src,
@@ -491,6 +735,10 @@ def kernel_line(err, attn_rows, mig_rows, counts):
               "src/repro_torch/kernels/csrc/block_migration.cu",
               "src/repro/kernels/block_migration.py:48", mig_rows,
               err["migrate_blocks"], counts["migrate_blocks"]),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:87", flash_rows,
+              flash_err, counts["flash_attention"]),
     ], **CARD}
 
 
@@ -505,7 +753,15 @@ def main() -> int:
     card_info(torch)
     phase_build()
     err, attn_rows, mig_rows = phase_kernels(torch)
-    counts = phase_serve(torch)
+    flash_err, flash_rows = phase_flash(torch)
+    counts, full_params = phase_serve(torch)
+    # the dense path's launches: flash_attention runs there, not on the
+    # paged path
+    counts["flash_attention"] = phase_dense_serve(torch, full_params)[
+        "flash_attention"]
+    phase_cswitch(torch, full_params[1])
+    del full_params
+    torch.cuda.empty_cache()
 
     from repro_torch.models import registry
     cfg, dcfg = fp32_cut()
@@ -513,8 +769,10 @@ def main() -> int:
               registry.get_model(dcfg).init(device="cuda", seed=2))
     phase_lossless(torch, params)
     phase_elastic(params)
+    phase_dense_lossless(torch, params)
     emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps(kernel_line(err, attn_rows, mig_rows, counts)))
+    print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
+                                 flash_rows, counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,15 @@
-"""Draft-then-verify speculative decoding over paged KV pools.
+"""Draft-then-verify speculative decoding, over paged KV pools and over
+dense caches.
 
 Cache-synchronisation invariant (holds before and after every step): both
-pools hold K/V for tokens x_0..x_{N-1} of each sequence, and
-``last_tokens`` = x_N is committed but in NEITHER pool.  The draft chain
+caches hold K/V for tokens x_0..x_{N-1} of each sequence, and
+``last_tokens`` = x_N is committed but in NEITHER cache.  The draft chain
 consumes the full (gamma+1)-token chunk [x_N, d_1..d_gamma] — one extra
-draft step per round — so both pools advance in lockstep and rollback is
-free: the host advances each sequence's length by n_accepted+1, and the
-stale slots beyond it are never attended (the attention masks
-pos <= query position) and are overwritten by the next step's writes.
+draft step per round — so both caches advance in lockstep and rollback is
+free: each sequence's length advances by n_accepted+1 (on the host for the
+pools, in the dense caches' ``length``), and the stale slots beyond it are
+never attended (the attention masks pos <= query position) and are
+overwritten by the next step's writes.
 """
 from __future__ import annotations
 
@@ -98,5 +100,66 @@ def make_paged_ar_step(target: ModelAPI, *, sampling: str = "greedy",
         lg = logits[:, 0] / temperature
         nxt = lg.argmax(dim=-1) if sampling == "greedy" else _sample(gen, lg)
         return nxt, tpages
+
+    return ar_step
+
+
+def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
+                   sampling: str = "greedy", temperature: float = 1.0):
+    """Build ``spec_step(gen, tparams, dparams, tcache, dcache, last_tokens,
+    gamma) -> SpecResult`` over dense caches (``decode_step``).
+
+    Both caches hold N tokens (their ``length``); the draft consumes the
+    (gamma+1)-token chunk, the target verifies it in one extension, and
+    both caches come back with length N + n_accepted + 1 (the attention
+    caches' rollback; the SSM checkpoint rollback comes with the O(1)-state
+    families).  The k/v tensors are updated in place."""
+
+    def spec_step(gen, tparams, dparams, tcache, dcache, last_tokens,
+                  gamma: int):
+        tok, toks, probs = last_tokens, [], []
+        for _ in range(gamma + 1):
+            logits, dcache = draft.decode_step(dparams, dcache, tok[:, None])
+            lg = logits[:, 0] / temperature
+            if sampling == "greedy":
+                tok = lg.argmax(dim=-1)
+            else:
+                probs.append(torch.softmax(lg, dim=-1))
+                tok = torch.multinomial(probs[-1], 1, generator=gen)[:, 0]
+            toks.append(tok)
+        draft_tokens = torch.stack(toks[:gamma], dim=1)            # (B, g)
+
+        chunk = torch.cat([last_tokens[:, None].long(), draft_tokens], dim=1)
+        t_logits, tcache_ext = target.decode_step(tparams, tcache, chunk)
+        t_logits = t_logits / temperature
+        if sampling == "greedy":
+            res = verify_greedy(draft_tokens, t_logits)
+        else:
+            res = verify_rejection(gen, draft_tokens,
+                                   torch.stack(probs[:gamma], dim=1),
+                                   torch.softmax(t_logits, dim=-1))
+        n_acc = res["n_accepted"]
+        length = (tcache["length"] + 1 + n_acc).to(torch.int32)
+        return SpecResult(tokens=res["tokens"], n_accepted=n_acc,
+                          n_committed=n_acc + 1,
+                          tcache={**tcache_ext, "length": length},
+                          dcache={**dcache, "length": length},
+                          last_token=res["next_token"])
+
+    return spec_step
+
+
+def make_ar_step(target: ModelAPI, *, sampling: str = "greedy",
+                 temperature: float = 1.0):
+    """Plain autoregressive decode step over a dense cache (the gamma=0
+    arm): ``ar_step(gen, tparams, tcache, last_tokens) -> (next tokens,
+    tcache)``."""
+
+    def ar_step(gen, tparams, tcache, last_tokens):
+        logits, tcache = target.decode_step(tparams, tcache,
+                                            last_tokens[:, None])
+        lg = logits[:, 0] / temperature
+        nxt = lg.argmax(dim=-1) if sampling == "greedy" else _sample(gen, lg)
+        return nxt, tcache
 
     return ar_step

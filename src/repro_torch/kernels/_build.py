@@ -33,6 +33,8 @@ SIGNATURES = {
     "migrate_blocks_launch": [_c_void_p] * 3 + [_c_int, _c_int, _c_longlong,
                                                 _c_longlong, _c_int,
                                                 _c_void_p],
+    "flash_attention_launch": [_c_void_p] * 4 + [_c_int] * 8
+    + [_c_float, _c_int, _c_void_p],
 }
 
 

@@ -54,3 +54,26 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
     out = out.reshape(B, T, H, D).to(q.dtype)
     return out[:, 0] if squeeze else out
+
+
+def flash_attention_ref(q, k, v, *, causal, prefix_len=0):
+    """Full-sequence attention, in fp32, returned in q's dtype.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, KH, D), query head h reading KV head
+    h // (H // KH).  Causal (Sq == Sk): query i sees keys j <= i, and every
+    key j < ``prefix_len`` (a bidirectional prefix).  Non-causal: every
+    query sees every key, and ``prefix_len`` has no effect.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, Sq, KH, G, D).float() * (D ** -0.5)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        k_pos = torch.arange(Sk, device=q.device)[None, :]
+        mask = (q_pos >= k_pos) | (k_pos < prefix_len)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)

@@ -3,12 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
 Builds the full-width bf16 paper-7b pair as ``chip_smoke.py`` serves it,
-warms it up on four requests, then serves eight more under
-``torch.profiler`` and prints one JSON line: the wall time (profiler
-overhead included), the device's busy time (the union of its kernel
-intervals) and idle share, the number of device kernels, the device time
-of the port's own CUDA kernels, and the operators that took the most
-device and host time.
+once on the paged path (``build_real_engine``) and once on the dense-cache
+path (``build_dense_engine``, same weights).  For each it warms up on four
+requests, then serves eight more under ``torch.profiler`` and prints one
+JSON line: the wall time (profiler overhead included), the device's busy
+time (the union of its kernel intervals) and idle share, the number of
+device kernels, the device time of the port's own CUDA kernels, and the
+operators that took the most device and host time.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import configs
 from ..serving.workload import tiny_requests
-from .serve import build_real_engine
+from .serve import build_dense_engine, build_real_engine
 
 
 def _busy_us(events) -> float:
@@ -40,16 +41,13 @@ def _busy_us(events) -> float:
     return busy
 
 
-def main():
-    cfg = configs.get_config("paper-7b")
-    dcfg = configs.get_draft_config("paper-7b")
-    kw = dict(device="cuda", dtype="bfloat16", policy="nightjar",
-              prefix_caching=True, chunk_tokens=16, seed=0)
-    engine = build_real_engine(cfg, dcfg, **kw)
+def profile_run(engine, path, vocab):
+    """Warm ``engine`` up, then serve eight requests under the profiler;
+    returns the JSON-ready breakdown."""
     engine.run(tiny_requests(4, prompt_len=16, output_len=16, template_len=8,
-                             vocab=cfg.vocab_size, seed=1), max_steps=5000)
+                             vocab=vocab, seed=1), max_steps=5000)
     reqs = tiny_requests(8, prompt_len=16, output_len=16, template_len=8,
-                         vocab=cfg.vocab_size, seed=0)
+                         vocab=vocab, seed=0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -71,15 +69,30 @@ def main():
                if e.device_type == torch.autograd.DeviceType.CUDA]
     ours = {name: sum(e.time_range.elapsed_us() for e in kernels
                       if name in e.name) / 1e3
-            for name in ("paged_attention_kernel", "migrate_kernel")}
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
+            for name in ("paged_attention_kernel", "migrate_kernel",
+                         "flash_attention_kernel")}
+    return {
+        "path": path, "device": torch.cuda.get_device_name(0),
         "wall_s": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall,
         "steps": m.spec.get("steps", 0), "output_tokens": m.total_tokens,
         "device_kernels": len(kernels), "own_kernels_device_ms": ours,
         "top_device": top("self_device_time_total"),
-        "top_host": top("self_cpu_time_total")}))
+        "top_host": top("self_cpu_time_total")}
+
+
+def main():
+    cfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
+    dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    engine = build_real_engine(cfg, dcfg, device="cuda", policy="nightjar",
+                               prefix_caching=True, chunk_tokens=16, seed=0)
+    print(json.dumps(profile_run(engine, "paged", cfg.vocab_size)),
+          flush=True)
+    params = (engine.backend.tparams, engine.backend.dparams)
+    del engine
+    engine = build_dense_engine(cfg, dcfg, device="cuda", policy="nightjar",
+                                seed=0, params=params)
+    print(json.dumps(profile_run(engine, "dense", cfg.vocab_size)))
 
 
 if __name__ == "__main__":

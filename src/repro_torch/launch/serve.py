@@ -5,8 +5,9 @@
       --dataset templated --chunk-tokens 8 --prefix-caching on
 
 ``main`` serves ``configs.reduced`` models, as the reference's real tier
-does; :func:`build_real_engine` takes any config pair (``chip_smoke.py``
-serves the full-width paper-7b pair through it).
+does; :func:`build_real_engine` and :func:`build_dense_engine` (the
+dense-cache tier) take any config pair (``chip_smoke.py`` serves the
+full-width paper-7b pair through both).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from ..serving.engine import ServingEngine
 from ..serving.kv_cache import BlockManager, HostKVStore
 from ..serving.memory_manager import ElasticMemoryManager
 from ..serving.paged_runtime import num_blocks_for
-from ..serving.real_backend import RealBackend
+from ..serving.real_backend import (DenseSlotBackend, RealBackend,
+                                    make_real_backend)
 from ..serving.scheduler import ContinuousBatchingScheduler
 
 
@@ -41,12 +43,13 @@ def build_real_engine(cfg: ModelConfig, dcfg: ModelConfig, *,
                       params: Optional[Tuple[dict, dict]] = None
                       ) -> ServingEngine:
     """One BlockManager drives both the scheduler's admission and the
-    physical paged pools, sized from the H100 memory budget; the elastic
-    memory manager can offload the draft and grow / migrate / shrink the
-    pools.  ``dtype`` overrides both configs' dtype.  ``params`` is a
-    (target, draft) pair of parameter trees; without it both are seeded
-    from ``seed``.  Prefix caching needs a chunk budget (the monolithic
-    scheduler always recomputes prompts)."""
+    physical paged pools, sized from the H100 memory budget; the backend is
+    ``make_real_backend``'s choice (the paged ``RealBackend`` for the dense
+    family).  With a ``RealBackend`` the elastic memory manager can offload
+    the draft and grow / migrate / shrink the pools.  ``dtype`` overrides
+    both configs' dtype.  ``params`` is a (target, draft) pair of parameter
+    trees; without it both are seeded from ``seed``.  Prefix caching needs
+    a chunk budget (the monolithic scheduler always recomputes prompts)."""
     if dtype is not None:
         cfg, dcfg = cfg.replace(dtype=dtype), dcfg.replace(dtype=dtype)
     target, draft = registry.get_model(cfg), registry.get_model(dcfg)
@@ -54,13 +57,14 @@ def build_real_engine(cfg: ModelConfig, dcfg: ModelConfig, *,
     nb = num_blocks_for(cm, cfg, dcfg, BLOCK_SIZE, max_blocks=MAX_BLOCKS)
     bm = BlockManager(nb, BLOCK_SIZE, prefix_caching=prefix_caching,
                       host_store=HostKVStore(4 * nb) if kv_offload else None)
-    backend = RealBackend(target, draft, device=device, params=params,
-                          max_batch=MAX_BATCH, seed=seed, block_manager=bm)
+    backend = make_real_backend(target, draft, device=device, params=params,
+                                max_batch=MAX_BATCH, seed=seed,
+                                block_manager=bm)
     sched = ContinuousBatchingScheduler(bm, max_batch=MAX_BATCH,
                                         chunk_tokens=chunk_tokens,
                                         prefill_order=prefill_order)
     mm = None
-    if memmgr:
+    if memmgr and isinstance(backend, RealBackend):
         # the draft's weight bytes converted to KV blocks, clamped so a
         # reduced model still exercises the grow/migrate path
         draft_blocks = max(min(
@@ -75,6 +79,25 @@ def build_real_engine(cfg: ModelConfig, dcfg: ModelConfig, *,
             shrink_fn=backend.shrink_pools)
     return ServingEngine(backend, sched,
                          make_policy(policy, GAMMA_MAX, seed=seed), mm,
+                         gamma_max=GAMMA_MAX)
+
+
+def build_dense_engine(cfg: ModelConfig, dcfg: ModelConfig, *,
+                       device="cuda", policy: str = "nightjar",
+                       seed: int = 0,
+                       params: Optional[Tuple[dict, dict]] = None
+                       ) -> ServingEngine:
+    """The dense-cache tier at the real tier's shape: ``DenseSlotBackend``
+    (fixed slots, one prompt at a time through the flash kernel, draft
+    catch-up by re-prefill) under the monolithic scheduler, without the
+    elastic memory manager (it manages paged pools)."""
+    target, draft = registry.get_model(cfg), registry.get_model(dcfg)
+    backend = DenseSlotBackend(target, draft, device=device, params=params,
+                               max_batch=MAX_BATCH, seed=seed)
+    sched = ContinuousBatchingScheduler(BlockManager(MAX_BLOCKS, BLOCK_SIZE),
+                                        max_batch=MAX_BATCH)
+    return ServingEngine(backend, sched,
+                         make_policy(policy, GAMMA_MAX, seed=seed), None,
                          gamma_max=GAMMA_MAX)
 
 

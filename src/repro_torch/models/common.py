@@ -1,5 +1,6 @@
-"""Building blocks of the dense paged decoder: initialisers, norms, RoPE,
-the attention projections and the MLPs.
+"""Building blocks of the dense decoder: initialisers, norms, RoPE, the
+attention projections, full-sequence and dense-cache attention, and the
+MLPs.
 
 Weight layouts are the reference's, so bridged weights need no reshape:
 ``wq (d, H, hd)``, ``wk/wv (d, KH, hd)``, ``wo (H, hd, d)``, ``bq (H, hd)``,
@@ -11,6 +12,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+from ..kernels.ref import NEG_INF
 
 # ---------------------------------------------------------------------------
 # Initialisation (same distributions as the reference; not the same bits)
@@ -117,6 +121,58 @@ def attn_output(p, o):
     """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
     H, hd, d = p["wo"].shape
     return o.reshape(*o.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+# ---------------------------------------------------------------------------
+# Attention over full sequences and dense caches
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
+    """Full-sequence attention: q (B, Sq, H, D), k/v (B, Sk, KH, D) ->
+    (B, Sq, H, D) in q's dtype, the running softmax in fp32.
+
+    ``prefix_len`` marks a bidirectional prefix (keys before it are visible
+    to every query) under ``causal``.  On the card this is the flash kernel;
+    on the CPU its plain version."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, prefix_len=prefix_len)
+
+
+def decode_attention(q, k_cache, v_cache, q_positions):
+    """Attention of T new positions against a (partially filled) cache.
+
+    q: (B, T, H, D); caches (B, S, KH, D) with the new K/V already written;
+    q_positions: (B, T) absolute positions.  Each query attends to every
+    cache slot at or before its own position: decode (T=1) and speculative
+    verify (T=gamma+1).  Scores in fp32; the unnormalised probabilities are
+    rounded to the cache dtype before the product with V, as the reference
+    does."""
+    B, T, H, D = q.shape
+    S, KH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    qg = q.reshape(B, T, KH, G, D) * (D ** -0.5)
+    s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k_cache.float())
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= q_positions[:, :, None])                          # (B, T, S)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                            # (B,KH,G,T)
+    out = torch.einsum("bkgts,bskd->btkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def cache_write(cache, new, start):
+    """Write ``new`` (B, T, KH, hd) into ``cache`` (B, S, KH, hd) at
+    positions start[b] .. start[b] + T - 1, IN PLACE (``index_put_``; the
+    reference builds a new array).  Every position must lie inside the
+    cache.  Returns ``cache``."""
+    B, T = new.shape[:2]
+    rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
+    pos = start.long()[:, None] + torch.arange(T, device=cache.device)
+    return cache.index_put_((rows, pos), new.to(cache.dtype))
 
 
 def apply_mlp(cfg, p, x):

@@ -1,7 +1,12 @@
-"""Model API of the port: the paged serving path of the dense family.
+"""Model API of the port: the dense family's full-sequence, dense-cache and
+paged serving paths.
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with
   init(device=..., seed=...) -> params
+  forward(params, batch) -> final hidden states (B, S, d)
+  init_cache(batch_size, max_len, device=...) -> cache
+  prefill(params, batch, max_len) -> (last_logits, cache)
+  decode_step(params, cache, tokens) -> (logits, cache)
   init_paged_cache(num_blocks, block_size, device=...) -> pages
   decode_step_paged(params, pages, tokens, tables, start[, valid])
     -> (logits, pages)
@@ -21,6 +26,10 @@ from . import transformer
 class ModelAPI:
     cfg: ModelConfig
     init: Callable
+    forward: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
     init_paged_cache: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
 
@@ -38,6 +47,10 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(transformer.init_params, cfg),
+        forward=functools.partial(transformer.forward, cfg),
+        init_cache=functools.partial(transformer.init_cache, cfg),
+        prefill=functools.partial(transformer.prefill, cfg),
+        decode_step=functools.partial(transformer.decode_step, cfg),
         init_paged_cache=functools.partial(transformer.init_paged_cache, cfg),
         decode_step_paged=functools.partial(transformer.decode_step_paged,
                                             cfg),

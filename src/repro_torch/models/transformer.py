@@ -1,11 +1,18 @@
-"""Dense decoder-only transformer over a paged KV pool.
+"""Dense decoder-only transformer.
 
 Layer parameters are stacked on a leading ``L`` axis, as the reference's
-``scan_layers`` layout, and the paged pools are ``(L, NB+1, bs, KH, hd)``
-with the write-off ("trash") block last.  One function,
-:func:`decode_step_paged`, serves every real-backend shape: prefill
-(start=0), chunked-prefill appends (ragged ``valid``), decode (T=1) and
-speculative verification (T=gamma+1).
+``scan_layers`` layout.  Two serving paths:
+
+* paged: pools ``(L, NB+1, bs, KH, hd)`` with the write-off ("trash") block
+  last.  One function, :func:`decode_step_paged`, serves every
+  ``RealBackend`` shape: prefill (start=0), chunked-prefill appends (ragged
+  ``valid``), decode (T=1) and speculative verification (T=gamma+1).
+* dense cache: ``(L, B, S, KH, hd)`` k/v plus ``length`` (the
+  ``DenseSlotBackend`` tier).  :func:`prefill` runs the whole prompt through
+  the full-sequence attention (the flash kernel on the card) and
+  :func:`decode_step` extends it by T tokens.
+
+:func:`forward` is the full-sequence pass (final hidden states).
 """
 from __future__ import annotations
 
@@ -15,8 +22,9 @@ import torch
 
 from .. import device as _device
 from ..kernels.paged_attention import paged_attention
-from .common import (apply_mlp, apply_norm, attn_output, dense_init_,
-                     embed_init_, qkv_project, rope_angles)
+from .common import (apply_mlp, apply_norm, attn_output, blockwise_attention,
+                     cache_write, decode_attention, dense_init_, embed_init_,
+                     qkv_project, rope_angles)
 
 Params = Dict[str, Any]
 
@@ -143,6 +151,106 @@ def unembed(cfg, params, h):
     return logits
 
 
+def _rope(cfg, positions):
+    """Every layer's RoPE angles for ``positions`` (B, S), or None."""
+    if cfg.pos_embedding != "rope":
+        return None
+    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Full sequence and dense KV cache
+# ---------------------------------------------------------------------------
+
+
+def apply_layer_full(cfg, layer, h, rope):
+    """Full-sequence (prefill) pass through one block: h (B, S, d) ->
+    (h, k, v), with causal attention over the whole sequence."""
+    x = apply_norm(cfg, h, layer["ln1"])
+    q, k, v = qkv_project(cfg, layer["attn"], x, rope)
+    o = blockwise_attention(q, k, v, causal=True)
+    h = h + attn_output(layer["attn"], o)
+    x = apply_norm(cfg, h, layer["ln2"])
+    return h + apply_mlp(cfg, layer["mlp"], x), k, v
+
+
+def forward(cfg, params, batch):
+    """batch["tokens"] (B, S) -> final hidden states (B, S, d), after the
+    final norm (logits are ``unembed`` of them)."""
+    tokens = batch["tokens"].long()
+    S = tokens.shape[1]
+    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :])
+    h = embed_tokens(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        h = apply_layer_full(cfg, layer_params(params, i), h, rope)[0]
+    return apply_norm(cfg, h, params["final_norm"])
+
+
+def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
+    """Dense KV cache: k/v (L, batch_size, max_len, KH, hd) zeros and
+    ``length`` (batch_size,) int32 zeros."""
+    dev = _device.resolve(device)
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+            "length": torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=dev)}
+
+
+def prefill(cfg, params, batch, max_len: int):
+    """Run the whole prompt batch["tokens"] (B, S): returns the last
+    position's logits (B, 1, V) fp32 and a new cache of ``max_len``
+    positions holding the prompt's K/V, with length S."""
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prefill: {S} prompt tokens exceed the cache's "
+                         f"{max_len} positions")
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :])
+    h = embed_tokens(cfg, params, tokens)
+    for i in range(cfg.num_layers):
+        h, k, v = apply_layer_full(cfg, layer_params(params, i), h, rope)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    cache["length"].fill_(S)
+    h = apply_norm(cfg, h[:, -1:], params["final_norm"])
+    return unembed(cfg, params, h), cache
+
+
+def apply_layer_decode(cfg, layer, h, k_cache, v_cache, positions, rope):
+    """Decode / extend: h (B, T, d); one layer's caches (B, S, KH, hd),
+    written IN PLACE at ``positions`` (B, T) first; then every query attends
+    to all cache slots at or before its position."""
+    x = apply_norm(cfg, h, layer["ln1"])
+    q, k, v = qkv_project(cfg, layer["attn"], x, rope)
+    cache_write(k_cache, k, positions[:, 0])
+    cache_write(v_cache, v, positions[:, 0])
+    o = decode_attention(q, k_cache, v_cache, positions)
+    h = h + attn_output(layer["attn"], o)
+    x = apply_norm(cfg, h, layer["ln2"])
+    return h + apply_mlp(cfg, layer["mlp"], x)
+
+
+def decode_step(cfg, params, cache, tokens):
+    """Extend by T tokens: tokens (B, T) int at positions cache["length"]
+    onwards; T=1 is plain decode and T=gamma+1 the speculative-verify
+    extension.  The k/v tensors are updated in place; returns (logits
+    (B, T, V) fp32, a cache dict with those tensors and ``length`` + T)."""
+    T = tokens.shape[1]
+    positions = (cache["length"].long()[:, None]
+                 + torch.arange(T, device=tokens.device)[None, :])
+    rope = _rope(cfg, positions)
+    h = embed_tokens(cfg, params, tokens.long())
+    for i in range(cfg.num_layers):
+        h = apply_layer_decode(cfg, layer_params(params, i), h,
+                               cache["k"][i], cache["v"][i], positions, rope)
+    h = apply_norm(cfg, h, params["final_norm"])
+    return unembed(cfg, params, h), {"k": cache["k"], "v": cache["v"],
+                                     "length": cache["length"] + T}
+
+
 # ---------------------------------------------------------------------------
 # Paged KV cache
 # ---------------------------------------------------------------------------
@@ -209,8 +317,7 @@ def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):
     tables = tables.to(torch.int32).contiguous()
     _, nb1, bs = pages["k_pages"].shape[:3]
     slots = _write_slots(tables, positions, vmask, nb1 - 1, bs)
-    rope = (rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-            if cfg.pos_embedding == "rope" else None)
+    rope = _rope(cfg, positions)
     h = embed_tokens(cfg, params, tokens.long())
     for i in range(cfg.num_layers):
         h = apply_layer_decode_paged(

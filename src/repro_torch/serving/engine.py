@@ -4,10 +4,12 @@ The driver couples the four paper components exactly as Figure 4:
   Scheduler (continuous batching)  ->  Planner (MAB, batch size as context)
   ->  Execution (AR step | speculative step)  ->  Elastic Memory Manager.
 
-Backend:
-  * RealBackend (real_backend.py) — PyTorch execution over a paged-KV
-    runtime (zero-copy block-table indexing, chunked prefill via
-    hybrid_step), on the GPU through the package's CUDA kernels.
+Backends (real_backend.py):
+  * RealBackend — PyTorch execution over a paged-KV runtime (zero-copy
+    block-table indexing, chunked prefill via hybrid_step), on the GPU
+    through the package's CUDA kernels.
+  * DenseSlotBackend — dense slot caches, monolithic prefill one prompt at
+    a time through the flash-attention kernel.
 
 Any object with the same methods plugs in: the engine only reads latencies
 and committed-token counts from it.

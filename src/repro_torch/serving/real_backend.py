@@ -1,13 +1,24 @@
-"""Real-execution backend: the paged-KV runtime behind the serving engine.
+"""Real-execution backends: the port's models behind the serving engine.
 
-:class:`RealBackend` allocates ``(L, num_blocks + 1, block_size, KH, hd)``
-key/value pools per model ONCE and drives them by the
-:class:`BlockManager`'s block tables: admission, decode, speculative
-verification, chunked prefill, eviction and completion touch only int32
-tables and sampled tokens — the cache tensors never travel.  One multi-query
+Two implementations share the backend protocol; :func:`make_real_backend`
+picks one per model pair.
+
+:class:`RealBackend`, the paged-KV runtime, allocates
+``(L, num_blocks + 1, block_size, KH, hd)`` key/value pools per model ONCE
+and drives them by the :class:`BlockManager`'s block tables: admission,
+decode, speculative verification, chunked prefill, eviction and completion
+touch only int32 tables and sampled tokens — the cache tensors never
+travel.  One multi-query
 paged-attention kernel serves plain decode (T=1), speculative verify
 (T=gamma+1) and prefill / chunked-prefill appends (T=chunk), so
 ``hybrid_step`` runs the chunked scheduler's mixed chunk+decode batches.
+
+:class:`DenseSlotBackend` keeps dense ``(L, max_batch, max_seq, KH, hd)``
+caches in fixed slots: each step gathers the active slots, runs the
+dense-cache spec / AR step and scatters them back, and prefill runs one
+prompt at a time through the full-sequence attention (the flash kernel on
+the card).  It is the tier for models without a paged path and the
+baseline the paged runtime is held equal to.
 
 Latencies are host clock around work that ends in a device synchronise —
 what the planner learns from on this tier.
@@ -21,12 +32,23 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..core.spec_decode import make_paged_ar_step, make_paged_spec_step
+from ..core.spec_decode import (make_ar_step, make_paged_ar_step,
+                                make_paged_spec_step, make_spec_step)
 from ..models.registry import ModelAPI, tree_to
 from .engine import StepOutcome
 from .kv_cache import BlockManager, OutOfBlocks
 from .paged_runtime import PagedKVRuntime, bucket_size, num_blocks_for
 from .request import Sequence
+
+
+def make_real_backend(target: ModelAPI, draft: ModelAPI, **kw):
+    """The paged runtime when both models have a paged-KV path; dense slot
+    caches otherwise (the paged-only arguments are dropped)."""
+    if target.supports_paged and draft.supports_paged:
+        return RealBackend(target, draft, **kw)
+    for k in ("block_manager", "num_blocks", "block_size", "cost_model"):
+        kw.pop(k, None)
+    return DenseSlotBackend(target, draft, **kw)
 
 
 class RealBackend:
@@ -458,6 +480,207 @@ class RealBackend:
         # no-op there; direct backend users free their blocks
         if seq.req_id in self.bm.tables:
             self.bm.release(seq.req_id)
+
+    def output_tokens(self, req_id: int) -> List[int]:
+        return self.tokens_out.get(req_id, [])
+
+
+# ---------------------------------------------------------------------------
+# Dense slot-cache backend
+# ---------------------------------------------------------------------------
+
+
+def _gather(cache, idx):
+    """The slots ``idx`` of every cache tensor, as a new compact cache."""
+    return {k: x[idx] if x.dim() == 1 else x[:, idx]
+            for k, x in cache.items()}
+
+
+def _scatter(cache, compact, idx, n_real):
+    """Write the first ``n_real`` rows of ``compact`` back into slots
+    ``idx[:n_real]`` of ``cache``, in place."""
+    dst = idx[:n_real]
+    for k, x in cache.items():
+        if x.dim() == 1:
+            x[dst] = compact[k][:n_real]
+        else:
+            x[:, dst] = compact[k][:, :n_real]
+
+
+class DenseSlotBackend:
+    """Slot-based continuous batching over dense caches:
+
+      * caches are allocated once for ``max_batch`` slots x ``max_seq``
+        positions;
+      * each step gathers the active slots into a compact batch (padded to
+        a power-of-two bucket with copies of slot 0), runs the dense-cache
+        AR / speculative step, and scatters the real rows back;
+      * prefill is a one-sequence-at-a-time loop; a draft catch-up
+        re-prefills the draft's whole context (the C_switch cost).
+
+    ``params`` is a (target, draft) pair of parameter trees on ``device``;
+    without it both models are initialised from ``seed``.
+    """
+
+    def __init__(self, target: ModelAPI, draft: ModelAPI, *,
+                 device="cuda", params: Optional[Tuple[dict, dict]] = None,
+                 max_batch: int = 8, max_seq: int = 256, seed: int = 0,
+                 sampling: str = "greedy", temperature: float = 1.0):
+        self.device = _device.resolve(device)
+        self.target = target
+        self.draft = draft
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        if params is None:
+            params = (target.init(device=self.device, seed=seed + 1),
+                      draft.init(device=self.device, seed=seed + 2))
+        self.tparams, self.dparams = params
+        self.dparams_host: Optional[dict] = None  # offloaded copy
+
+        self.tcache = target.init_cache(max_batch, max_seq,
+                                        device=self.device)
+        self.dcache = draft.init_cache(max_batch, max_seq, device=self.device)
+        self.last_token = np.zeros(max_batch, np.int32)
+        self.tokens_out: Dict[int, List[int]] = {}
+        self.slot_of: Dict[int, int] = {}
+        self._free_slots = list(range(max_batch))[::-1]
+
+        self._spec = make_spec_step(target, draft, sampling=sampling,
+                                    temperature=temperature)
+        self._ar = make_ar_step(target, sampling=sampling,
+                                temperature=temperature)
+
+    # ------------------------------------------------------------------
+    def _dev(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x)).to(self.device)
+
+    def _prompt(self, tokens: List[int]) -> dict:
+        return {"tokens": self._dev(np.asarray(tokens, np.int32)[None, :])}
+
+    def offload_draft(self) -> None:
+        self.dparams_host = tree_to(self.dparams, "cpu")
+        self.dparams = None
+
+    def reload_draft(self) -> None:
+        assert self.dparams_host is not None
+        self.dparams = tree_to(self.dparams_host, self.device)
+
+    @property
+    def draft_resident(self) -> bool:
+        return self.dparams is not None
+
+    # ------------------------------------------------------------------
+    def prefill(self, seqs: List[Sequence], *, with_draft: bool) -> float:
+        t0 = time.perf_counter()
+        for s in seqs:
+            slot = self._free_slots.pop()
+            self.slot_of[s.req_id] = slot
+            s.slot = slot
+            batch = self._prompt(s.request.prompt_tokens)
+            idx = self._dev([slot])
+            logits, cache1 = self.target.prefill(self.tparams, batch,
+                                                 self.max_seq)
+            _scatter(self.tcache, cache1, idx, 1)
+            nxt = int(logits[0, 0].argmax())
+            self.last_token[slot] = nxt
+            self.tokens_out[s.req_id] = [nxt]
+            s.generated = 0  # first token counted at the first decode commit
+            if with_draft and self.draft_resident:
+                _, dcache1 = self.draft.prefill(self.dparams, batch,
+                                                self.max_seq)
+                _scatter(self.dcache, dcache1, idx, 1)
+                s.delta = 0
+            else:
+                s.delta = s.request.prompt_len
+        _device.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def draft_catchup(self, seqs: List[Sequence]) -> float:
+        """Re-prefill the draft cache for sequences whose draft state lags
+        (the physical C_switch cost)."""
+        if not self.draft_resident:
+            return 0.0
+        t0 = time.perf_counter()
+        for s in seqs:
+            if s.delta <= 0:
+                continue
+            ctx = (list(s.request.prompt_tokens)
+                   + self.tokens_out[s.req_id][:-1])
+            _, dcache1 = self.draft.prefill(self.dparams, self._prompt(ctx),
+                                            self.max_seq)
+            _scatter(self.dcache, dcache1,
+                     self._dev([self.slot_of[s.req_id]]), 1)
+            s.delta = 0
+        _device.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    def hybrid_step(self, chunks, decode: List[Sequence], gamma: int,
+                    *, with_draft: bool) -> StepOutcome:
+        """Chunked prefill needs the paged RealBackend; the dense slot tier
+        prefills monolithically."""
+        if chunks:
+            raise NotImplementedError(
+                "chunked prefill needs the paged-KV RealBackend — the dense "
+                "slot backend prefills monolithically (chunk_tokens=0)")
+        return self.step(decode, gamma)
+
+    def step(self, seqs: List[Sequence], gamma: int) -> StepOutcome:
+        n = len(seqs)
+        bucket = min(bucket_size(n), self.max_batch)
+        slots = np.array([self.slot_of[s.req_id] for s in seqs], np.int32)
+        for s in seqs:
+            # materialised tokens + this step's gamma+1 writes
+            need = (s.request.prompt_len + len(self.tokens_out[s.req_id])
+                    + gamma)
+            if need > self.max_seq:
+                raise ValueError(f"request {s.req_id}: {need} positions "
+                                 f"exceed the dense cache's {self.max_seq}")
+        idx_np = np.concatenate([slots, np.zeros(bucket - n, np.int32)])
+        idx = self._dev(idx_np).long()
+
+        tc = _gather(self.tcache, idx)
+        last = self._dev(self.last_token[idx_np]).long()
+
+        t0 = time.perf_counter()
+        if gamma == 0:
+            nxt, tc_new = self._ar(self.gen, self.tparams, tc, last)
+            _device.synchronize(self.device)
+            latency = time.perf_counter() - t0
+            _scatter(self.tcache, tc_new, idx, n)
+            nxt_np = nxt.cpu().numpy()
+            n_committed = []
+            for i, s in enumerate(seqs):
+                self.tokens_out[s.req_id].append(int(nxt_np[i]))
+                self.last_token[slots[i]] = int(nxt_np[i])
+                n_committed.append(1)
+            return StepOutcome(n_committed=n_committed, latency=latency)
+
+        dc = _gather(self.dcache, idx)
+        res = self._spec(self.gen, self.tparams, self.dparams, tc, dc, last,
+                         gamma)
+        _device.synchronize(self.device)
+        latency = time.perf_counter() - t0
+        _scatter(self.tcache, res.tcache, idx, n)
+        _scatter(self.dcache, res.dcache, idx, n)
+        toks = res.tokens.cpu().numpy()
+        n_acc = res.n_accepted.cpu().numpy()
+        last_np = res.last_token.cpu().numpy()
+        n_committed = []
+        for i, s in enumerate(seqs):
+            committed = [int(t) for t in toks[i] if t >= 0]
+            self.tokens_out[s.req_id].extend(committed)
+            self.last_token[slots[i]] = int(last_np[i])
+            n_committed.append(int(n_acc[i]) + 1)
+        return StepOutcome(n_committed=n_committed, latency=latency)
+
+    # ------------------------------------------------------------------
+    def release(self, seq: Sequence) -> None:
+        slot = self.slot_of.pop(seq.req_id, None)
+        if slot is not None:
+            self._free_slots.append(slot)
 
     def output_tokens(self, req_id: int) -> List[int]:
         return self.tokens_out.get(req_id, [])

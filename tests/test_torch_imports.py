@@ -61,12 +61,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from repro_torch.launch.serve import build_real_engine
     from repro_torch.models import registry
     from repro_torch.models.bridge import params_from_numpy
-    from repro_torch.serving.real_backend import RealBackend
+    from repro_torch.serving.real_backend import (DenseSlotBackend,
+                                                  RealBackend)
     cfg = configs.reduced(configs.get_config("paper-7b"))
     dcfg = configs.reduced(configs.get_draft_config("paper-7b"))
     t, d = registry.get_model(cfg), registry.get_model(dcfg)
     for call in (lambda: t.init(), lambda: t.init_paged_cache(4, 8),
-                 lambda: RealBackend(t, d), lambda: build_real_engine(cfg, dcfg),
+                 lambda: t.init_cache(2, 8), lambda: RealBackend(t, d),
+                 lambda: DenseSlotBackend(t, d),
+                 lambda: build_real_engine(cfg, dcfg),
                  lambda: params_from_numpy(cfg, {})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

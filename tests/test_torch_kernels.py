@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.block_migration import migrate_blocks  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
 
 
@@ -24,9 +25,12 @@ def jx():
     import jax.numpy as jnp
     from repro.kernels import ref
     from repro.kernels.block_migration import migrate_blocks as jmigrate
+    from repro.kernels.flash_attention import flash_attention as jflash
     from repro.kernels.paged_attention import paged_attention as jpallas
+    from repro.models.common import blockwise_attention
     return types.SimpleNamespace(jnp=jnp, ref=ref, migrate=jmigrate,
-                                 pallas=jpallas)
+                                 pallas=jpallas, flash=jflash,
+                                 blockwise=blockwise_attention)
 
 
 SWEEP = [(2, 4, 4, 64, 16, 3),    # MHA
@@ -138,12 +142,63 @@ def test_migrate_blocks_rejects_unsafe_plans(src, dst, msg):
         migrate_blocks(pool, src, dst)
 
 
+# the reference's flash sweep (tests/test_kernels.py): (B, S, H, KH, D)
+FLASH_SWEEP = [(2, 256, 4, 4, 64), (1, 128, 8, 2, 128), (2, 384, 4, 1, 64)]
+# ragged lengths, the paper-7b pair's heads (G = 7 at D = 128 and D = 64) and
+# G = 1: (B, Sq, Sk, H, KH, D)
+FLASH_RAGGED = [(1, 16, 16, 28, 4, 128), (2, 37, 37, 14, 2, 64),
+                (1, 200, 200, 4, 4, 32), (2, 37, 200, 14, 2, 64)]
+
+
+def _flash_inputs(seed, B, Sq, Sk, H, KH, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, H, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KH, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KH, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KH,D", FLASH_SWEEP)
+def test_plain_flash_attention_matches_pallas_interpret(jx, B, S, H, KH, D,
+                                                        causal, dtype):
+    arrs = _flash_inputs(3, B, S, S, H, KH, D)
+    got = flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                            for a in arrs), causal=causal)
+    jnp = jx.jnp
+    want = jx.flash(*(jnp.asarray(a).astype(getattr(jnp, dtype))
+                      for a in arrs), causal=causal, interpret=True)
+    atol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("prefix_len", [0, 5])
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,D", FLASH_RAGGED)
+def test_plain_flash_attention_matches_jax_blockwise(jx, B, Sq, Sk, H, KH, D,
+                                                     prefix_len):
+    """Ragged lengths, a bidirectional prefix and a non-causal Sq != Sk,
+    against the model's chunked jnp attention (64-key chunks, so the ragged
+    tail is padded there)."""
+    arrs = _flash_inputs(4, B, Sq, Sk, H, KH, D)
+    causal = Sq == Sk
+    got = flash_attention(*map(torch.from_numpy, arrs), causal=causal,
+                          prefix_len=prefix_len)
+    want = jx.blockwise(*map(jx.jnp.asarray, arrs), causal=causal,
+                        prefix_len=prefix_len, chunk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_wrappers_count_no_launch_on_cpu():
-    before = (paged_attention.launches, migrate_blocks.launches)
+    before = (paged_attention.launches, migrate_blocks.launches,
+              flash_attention.launches)
     arrs = _attn_inputs(0, *((2, 1) + SWEEP[0][1:]))
     paged_attention(*_torch(arrs, torch.float32))
     migrate_blocks(torch.zeros((1, 4, 2, 1, 4)), [0], [1])
-    assert (paged_attention.launches, migrate_blocks.launches) == before
+    flash_attention(*map(torch.from_numpy, _flash_inputs(0, 1, 8, 8, 4, 2,
+                                                         32)), causal=True)
+    assert (paged_attention.launches, migrate_blocks.launches,
+            flash_attention.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +243,48 @@ def test_cuda_migrate_blocks_bitwise_equals_plain(dtype, nb, row_shape):
     got = migrate_blocks(x, src, dst)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+FLASH_CUDA = [(shape, causal, prefix)
+              for shape in ([(b, s, s, h, kh, d)
+                             for b, s, h, kh, d in FLASH_SWEEP]
+                            + FLASH_RAGGED + [(2, 384, 384, 28, 4, 128)])
+              for causal, prefix in ((True, 0), (True, 5), (False, 0))
+              if shape[1] == shape[2] or not causal]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,prefix_len", FLASH_CUDA)
+def test_cuda_flash_attention_matches_plain(shape, causal, prefix_len,
+                                            dtype):
+    _need_cuda()
+    B, Sq, Sk, H, KH, D = shape
+    arrs = _flash_inputs(13, B, Sq, Sk, H, KH, D)
+    args = [torch.from_numpy(a).to(getattr(torch, dtype)).cuda()
+            for a in arrs]
+    n = flash_attention.launches
+    got = flash_attention(*args, causal=causal, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    want = tref.flash_attention_ref(*args, causal=causal,
+                                    prefix_len=prefix_len)
+    atol = 3e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw,msg", [
+    ((1, 16, 4, 48), {}, "head_dim"),
+    ((1, 16, 4, 64), {"k_len": 8}, "Sq == Sk"),
+])
+def test_cuda_flash_attention_rejects_unsupported(shape, kw, msg):
+    _need_cuda()
+    B, S, H, D = shape
+    q = torch.zeros(shape, device="cuda")
+    k = torch.zeros((B, kw.get("k_len", S), 2, D), device="cuda")
+    with pytest.raises(ValueError, match=msg):
+        flash_attention(q, k, k, causal=True)
 
 
 @pytest.mark.cuda
