@@ -30,8 +30,11 @@ Phases (any failed check raises, and the script exits non-zero):
                ``CSwitchTable.profile``.
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
-TF32 off, and bf16) and times it beside its bound, the plain version and
-``scaled_dot_product_attention``.
+TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
+times it beside its bound, the plain version and
+``scaled_dot_product_attention``; the paged checks include 2,048-token
+contexts that take several splits and the combine pass, and each paged
+timing row says how many splits it used.
 
 Every line printed is a JSON object; the last is the run's verdict.  Needs a
 CUDA device and the repository's ``src/``; it refuses to run otherwise.
@@ -63,13 +66,23 @@ FLASH_CASES = [
     (2, 37, 37, 14, 2, 64, True, 0), (1, 200, 200, 14, 2, 64, True, 0),
     (2, 37, 200, 14, 2, 64, False, 0), (1, 384, 384, 14, 2, 64, True, 3),
     (1, 200, 200, 4, 4, 128, True, 0), (2, 37, 37, 4, 4, 64, False, 0),
-    (1, 37, 37, 4, 2, 32, True, 0)]
+    (1, 37, 37, 4, 2, 32, True, 0), (1, 200, 37, 28, 4, 128, False, 0),
+    (2, 130, 130, 4, 4, 64, True, 130), (1, 200, 200, 4, 4, 32, True, 0)]
 # flash attention timings (bf16, causal): label, B, S, H, KH, D
 FLASH_TIMED = [("dense serve prefill", 1, 16, 28, 4, 128),
                ("C_switch delta=128 B=2", 2, 128, 14, 2, 64),
                ("C_switch delta=256 B=8", 8, 256, 14, 2, 64),
                ("C_switch delta=512 B=32", 32, 512, 14, 2, 64),
                ("long target prefill", 1, 2048, 28, 4, 128)]
+# paged attention timings (bf16, B = 4, 8-position blocks): label, T,
+# context
+PAGED_TIMED = [("target decode B=4", 1, 32),
+               ("target verify gamma=3 B=4", 4, 32),
+               ("target prefill T=16 B=4", 16, 16),
+               ("draft decode B=4", 1, 32),
+               ("target decode B=4 ctx=512", 1, 512),
+               ("target decode B=4 ctx=1024", 1, 1024),
+               ("target decode B=4 ctx=2048", 1, 2048)]
 CARD = {}
 
 
@@ -139,6 +152,15 @@ def attn_case(torch, gen, *, B, T, H, KH, D, bs, lengths, dtype):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def paged_timed_case(torch, gen, label, T, ctx):
+    """(lengths, inputs) of one PAGED_TIMED row: four sequences of ``ctx``
+    positions of context, with the draft's heads on a draft row."""
+    attn = DRAFT_ATTN if label.startswith("draft") else TARGET_ATTN
+    lens = [ctx + T - 2 * i for i in range(4)]
+    return lens, attn_case(torch, gen, B=4, T=T, bs=8, lengths=lens,
+                           dtype=torch.bfloat16, **attn)
+
+
 def attn_bound(q, k_pages, lengths, dtype_name):
     """Least time the card needs for one call: the bytes it must move
     (queries and outputs once, the K/V pages this call's lengths reach,
@@ -182,36 +204,54 @@ def cuda_ms(torch, fn, *, iters=30, flush=None):
 
 def phase_kernels(torch):
     from repro_torch.kernels.block_migration import migrate_blocks
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import (TILE, paged_attention,
+                                                     split_plan)
     from repro_torch.kernels.ref import migrate_blocks_ref, paged_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # --- paged attention: correctness --------------------------------
+    # (splits the call must launch with, or None, and the case)
     cases = []
     for B, H, KH, D, bs, maxb in REF_SWEEP:
         for T in (1, 4, 8):
             lens = [T + (7 * i) % (maxb * bs - T + 1) for i in range(B)]
-            cases.append(("sweep", dict(B=B, T=T, H=H, KH=KH, D=D, bs=bs,
-                                        lengths=lens)))
-    for name, attn in (("target", TARGET_ATTN), ("draft", DRAFT_ATTN)):
+            cases.append((None, dict(B=B, T=T, H=H, KH=KH, D=D, bs=bs,
+                                     lengths=lens)))
+    # the serve's shapes: one split, so one launch
+    for attn in (TARGET_ATTN, DRAFT_ATTN):
         for B in (1, 4):
             for T in (1, 2, 3, 4, 16):
                 lens = [T + 5 + 9 * i for i in range(B)]
-                cases.append((name, dict(B=B, T=T, bs=8, lengths=lens,
-                                         **attn)))
-    cases.append(("target", dict(B=1, T=256, bs=8, lengths=[300],
-                                 **TARGET_ATTN)))
-    cases.append(("draft", dict(B=2, T=64, bs=4, lengths=[64, 100],
-                                **DRAFT_ATTN)))
+                cases.append((1, dict(B=B, T=T, bs=8, lengths=lens,
+                                      **attn)))
+    cases.append((None, dict(B=1, T=256, bs=8, lengths=[300],
+                             **TARGET_ATTN)))
+    cases.append((None, dict(B=2, T=64, bs=4, lengths=[64, 100],
+                             **DRAFT_ATTN)))
+    # split-KV: 2,048 tokens of context with ragged lengths in one batch,
+    # one sequence shorter than a split and one ending on a split boundary
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for attn in (TARGET_ATTN, DRAFT_ATTN):
+        for T in (1, 4, 16):
+            rows = T * attn["H"] // attn["KH"]
+            n, per = split_plan(4, attn["KH"], rows, 2048, sms)
+            assert n > 1, (attn, T, n)
+            split = per * TILE
+            cases.append((n, dict(
+                B=4, T=T, bs=8, lengths=[2048, split - 5,
+                                         split * min(n - 1, 3), 1500],
+                **attn)))
     attn_err = {}
     for dtype_name in ("float32", "bfloat16"):
         worst = 0.0
-        for _, kw in cases:
+        for splits, kw in cases:
             args = attn_case(torch, gen, dtype=getattr(torch, dtype_name),
                              **kw)
             got = paged_attention(*args)
+            assert splits in (None, paged_attention.last_splits), \
+                (kw, splits, paged_attention.last_splits)
             want = paged_attention_ref(*args)
             torch.cuda.synchronize()
             assert torch.isfinite(got).all(), kw
@@ -259,21 +299,15 @@ def phase_kernels(torch):
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
     bf16 = torch.bfloat16
     attn_rows = []
-    for label, T, ctx in (("target decode B=4", 1, 32),
-                          ("target verify gamma=3 B=4", 4, 32),
-                          ("target prefill T=16 B=4", 16, 16),
-                          ("draft decode B=4", 1, 32),
-                          ("target decode B=4 ctx=2048", 1, 2048)):
-        attn = DRAFT_ATTN if label.startswith("draft") else TARGET_ATTN
-        lens = [ctx + T - 2 * i for i in range(4)]
-        args = attn_case(torch, gen, B=4, T=T, bs=8, lengths=lens,
-                         dtype=bf16, **attn)
+    for label, T, ctx in PAGED_TIMED:
+        lens, args = paged_timed_case(torch, gen, label, T, ctx)
         err = (paged_attention(*args).float()
                - paged_attention_ref(*args).float()).abs().max().item()
         assert err <= ATOL["bfloat16"], (label, err)
+        splits = paged_attention.last_splits   # as the wrapper launched it
         bound, by = attn_bound(args[0], args[1], args[4], "bfloat16")
         attn_rows.append(dict(
-            shape=label, T=T, lengths=lens, max_abs_err=err,
+            shape=label, T=T, lengths=lens, splits=splits, max_abs_err=err,
             ms=cuda_ms(torch, lambda: paged_attention(*args), flush=flush),
             plain_ms=cuda_ms(torch, lambda: paged_attention_ref(*args),
                              flush=flush),

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-Every ``kernels/csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together), linked into
+Every ``kernels/csrc/*.cu`` file (with the ``*.cuh`` headers it includes)
+is compiled by ``nvcc`` for ``sm_90a`` (one process per source, all
+started together), linked into
 ``build/kernels/libreprotorch_kernels.so`` at the repository root and loaded
 with ``ctypes``: a plain C interface, no PyTorch headers.  The library is
 rebuilt whenever the sources or flags change (a stamp file holds their
@@ -28,7 +29,7 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _c_void_p, _c_int, _c_longlong, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                             ctypes.c_longlong, ctypes.c_float)
 SIGNATURES = {
-    "paged_attention_launch": [_c_void_p] * 6 + [_c_int] * 7
+    "paged_attention_launch": [_c_void_p] * 8 + [_c_int] * 9
     + [_c_float, _c_int, _c_void_p],
     "migrate_blocks_launch": [_c_void_p] * 3 + [_c_int, _c_int, _c_longlong,
                                                 _c_longlong, _c_int,
@@ -56,8 +57,9 @@ def _sources():
 
 
 def _stamp(srcs) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()

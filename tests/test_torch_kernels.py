@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.block_migration import migrate_blocks  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.paged_attention import paged_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    TILE, paged_attention, split_plan)
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +105,34 @@ def test_plain_paged_attention_single_query_rank(jx):
                                             "float32"))
     assert got.shape == q[:, 0].shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# rows that see no position (lengths[b] < T): every position of the table
+# scores -1e30 alike, so such a row gets the mean of V over the whole table
+BLIND = [(4, [2, 40], 6), (4, [0, 3], 2), (16, [5, 16], 3)]
+
+
+def _blind_inputs(seed, T, lengths, maxb, H=8, KH=2, D=64, bs=8):
+    arrs = list(_attn_inputs(seed, len(lengths), T, H, KH, D, bs, maxb))
+    arrs[4] = np.asarray(lengths, np.int32)
+    return arrs
+
+
+@pytest.mark.parametrize("T,lengths,maxb", BLIND)
+def test_plain_paged_attention_rows_seeing_nothing_match_jax(jx, T, lengths,
+                                                             maxb):
+    arrs = _blind_inputs(29, T, lengths, maxb)
+    got = paged_attention(*_torch(arrs, torch.float32)).numpy()
+    for want in (jx.ref.paged_attention_ref(*_jax(jx, arrs, "float32")),
+                 jx.pallas(*_jax(jx, arrs, "float32"), interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5)
+    _, _, vp, tables, _ = arrs
+    mean = vp[tables].mean(axis=(1, 2))          # (B, KH, D)
+    G = got.shape[2] // mean.shape[1]
+    for b, n in enumerate(lengths):
+        for t in range(T - n):
+            np.testing.assert_allclose(got[b, t], np.repeat(mean[b], G, 0),
+                                       atol=2e-5)
 
 
 def _plan(nb, seed=1):
@@ -199,6 +228,65 @@ def test_wrappers_count_no_launch_on_cpu():
                                                          32)), causal=True)
     assert (paged_attention.launches, migrate_blocks.launches,
             flash_attention.launches) == before
+
+
+# the host-side split-KV plan of paged_attention: (KH, G) of the paper-7b
+# target and draft, the query counts of decode, verify (gamma <= 3) and the
+# 16-token prefill / chunk appends
+SERVE_HEADS = [(4, 7), (2, 7)]
+SERVE_T = [1, 2, 3, 4, 16]
+
+
+@pytest.mark.parametrize("T", SERVE_T)
+@pytest.mark.parametrize("KH,G", SERVE_HEADS)
+def test_split_plan_one_split_at_serve_shapes(KH, G, T):
+    """The served contexts (16-token prompts, 16 outputs, gamma <= 3) need
+    tables of at most 8 blocks of 8 positions: one split, so one launch."""
+    for B in (1, 2, 3, 4):
+        for width in (1, 2, 4, 8):
+            for sms in (132, 114):
+                n, per = split_plan(B, KH, T * G, width * 8, sms)
+                assert n == 1 and per * TILE >= width * 8
+
+
+@pytest.mark.parametrize("B,width", [(4, 256), (4, 512), (8, 256)])
+def test_split_plan_fills_the_card_at_2048_tokens(B, width):
+    """Decode at 2,048 tokens of context (tables of 8-position blocks, the
+    width a power of two as the serve buckets it): the splits that hold
+    positions of the context give at least one block per SM of an H100."""
+    n, per = split_plan(B, 4, 7, width * 8, 132)
+    assert n > 1
+    busy = -(-2048 // (per * TILE))     # splits holding positions < 2048
+    assert B * 4 * min(busy, n) >= 132
+
+
+@pytest.mark.parametrize("max_positions", [8, 64, 256, 257, 512, 1000, 2048,
+                                           4096, 16384])
+@pytest.mark.parametrize("B,KH,rows", [(1, 1, 1), (4, 4, 7), (4, 2, 112),
+                                       (64, 8, 8)])
+def test_split_plan_covers_the_table(B, KH, rows, max_positions):
+    """Every position of the table falls in exactly one split, no split is
+    wholly past the table, and each split has at least 4 tiles unless
+    there is a single split."""
+    n, per = split_plan(B, KH, rows, max_positions, 132)
+    assert n >= 1 and per >= 1
+    assert n * per * TILE >= max_positions > (n - 1) * per * TILE
+    assert n == 1 or per >= 4
+
+
+def test_profile_serve_matches_every_kernel_by_name():
+    """profile_serve sums the device time of the package's own kernels by
+    name: its list must be exactly the __global__ functions of csrc/."""
+    import pathlib
+    import re
+    from repro_torch.launch.profile_serve import OWN_KERNELS
+    csrc = pathlib.Path(tref.__file__).resolve().parent / "csrc"
+    names = set()
+    for src in csrc.glob("*.cu"):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+            r"(\w+)\s*\(", src.read_text()))
+    assert names == set(OWN_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +405,103 @@ def test_cuda_paged_decoder_matches_cpu():
         assert launched == (0 if dev == "cpu" else 3 * cfg.num_layers)
     for a, b in zip(out["cpu"], out["cuda"]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+def _long_paged_inputs(seed, B, T, H, KH, D, bs, lengths):
+    """Paged inputs at long contexts: each sequence's pages drawn from a
+    shuffled pool, the table padded (to a power-of-two width, as the serve
+    buckets it) with a trash page holding large finite garbage."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n // bs) for n in lengths]
+    width = 1 << max(max(need) - 1, 0).bit_length()
+    nb = sum(need) + 3
+    q = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    kp = rng.normal(size=(nb + 1, bs, KH, D)).astype(np.float32)
+    vp = rng.normal(size=(nb + 1, bs, KH, D)).astype(np.float32)
+    kp[nb], vp[nb] = 1e4, -1e4
+    perm = rng.permutation(nb)
+    tables = np.full((B, width), nb, np.int32)
+    for b, n in enumerate(need):
+        tables[b, :n], perm = perm[:n], perm[n:]
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 4, 16])
+@pytest.mark.parametrize("H,KH,D,bs", [(28, 4, 128, 8), (14, 2, 64, 4)])
+def test_cuda_paged_attention_split_kv_long_context(H, KH, D, bs, T, dtype):
+    """Contexts up to 2,048 with ragged lengths in one batch: one sequence
+    shorter than one split, one ending exactly on a split boundary; the
+    call takes several splits and the combine pass."""
+    _need_cuda()
+    B = 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n, per = split_plan(B, KH, T * (H // KH), 2048, sms)
+    assert n > 1
+    split = per * TILE
+    lengths = [2048, split - 5, split * min(n - 1, 3), 1500]
+    arrs = _long_paged_inputs(17, B, T, H, KH, D, bs, lengths)
+    args = [a.cuda() for a in _torch(arrs, getattr(torch, dtype))]
+    before = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert paged_attention.last_splits == n
+    want = tref.paged_attention_ref(*args)
+    assert torch.isfinite(got).all()
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [8, 256])
+def test_cuda_paged_attention_rows_seeing_nothing_match_plain(dtype, width):
+    """lengths[b] < T: the rows that see no position get the mean of V over
+    the whole table, as the plain version does, with one split and with
+    several; the other rows match it too."""
+    _need_cuda()
+    arrs = _blind_inputs(19, 4, [2, 40, 0], width, H=4, KH=4)
+    args = [a.cuda() for a in _torch(arrs, getattr(torch, dtype))]
+    n = paged_attention.launches
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == n + 1
+    assert (paged_attention.last_splits > 1) == (width > 8)
+    want = tref.paged_attention_ref(*args)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# the tensor-core kernel's corners: a long causal prompt, S not a multiple
+# of the 64-row tile, a prefix longer than one tile, Sq != Sk, D = 32 / 64 /
+# 128 and G = 1 / 7: (B, Sq, Sk, H, KH, D, causal, prefix_len)
+FLASH_TC = [(1, 2048, 2048, 28, 4, 128, True, 0),
+            (2, 37, 37, 28, 4, 128, True, 0),
+            (1, 200, 200, 14, 2, 64, True, 0),
+            (1, 200, 200, 28, 4, 128, True, 130),
+            (2, 37, 200, 14, 2, 64, False, 0),
+            (1, 200, 37, 28, 4, 128, False, 0),
+            (1, 200, 200, 4, 4, 32, True, 0),
+            (2, 130, 130, 4, 4, 64, True, 130),
+            (1, 64, 64, 1, 1, 128, False, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_TC)
+def test_cuda_flash_attention_tensor_core_corners(case, dtype):
+    _need_cuda()
+    B, Sq, Sk, H, KH, D, causal, prefix_len = case
+    arrs = _flash_inputs(23, B, Sq, Sk, H, KH, D)
+    args = [torch.from_numpy(a).to(getattr(torch, dtype)).cuda()
+            for a in arrs]
+    n = flash_attention.launches
+    got = flash_attention(*args, causal=causal, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    want = tref.flash_attention_ref(*args, causal=causal,
+                                    prefix_len=prefix_len)
+    atol = 3e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
