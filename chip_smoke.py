@@ -14,18 +14,23 @@ Phases (any failed check raises, and the script exits non-zero):
                served through ``build_real_engine`` (Nightjar planner,
                prefix caching, paged speculative decoding); counts every
                kernel launch of that run;
-  4. lossless — fp32 (TF32 off) at full width and cut depth: the greedy
+  4. elastic_full — the elastic pool's §6.3-6.4 cycle on the serve's pool
+               (1,024 blocks, draft_blocks 256) at full width: offload and
+               grow, a contraction that moves 256 blocks of all four page
+               tensors in one launch (bit-exact against the sources),
+               shrink, reload and one draft decode step; times each step;
+  5. lossless — fp32 (TF32 off) at full width and cut depth: the greedy
                stream under Nightjar equals the AR stream, with the paper's
                draft and with the target as its own draft (which accepts);
-  5. elastic — the elastic memory manager offloads the draft on a 24-block
+  6. elastic — the elastic memory manager offloads the draft on a 24-block
                pool and the streams equal an unmanaged run;
-  6. dense_serve — the dense-cache path: the same pair and requests as
+  7. dense_serve — the dense-cache path: the same pair and requests as
                phase 3 through ``DenseSlotBackend`` (monolithic prefill one
                prompt at a time through the flash-attention kernel, dense
                spec / AR steps, draft catch-ups by re-prefill);
-  7. dense_lossless — fp32 at full width and cut depth: the dense Nightjar,
+  8. dense_lossless — fp32 at full width and cut depth: the dense Nightjar,
                dense AR, paged and dense target-as-draft streams are equal;
-  8. cswitch — the paper's Table 3 on the card: the full-width bf16 draft's
+  9. cswitch — the paper's Table 3 on the card: the full-width bf16 draft's
                dense prefill timed on the (delta, batch) grid through
                ``CSwitchTable.profile``.
 
@@ -34,7 +39,13 @@ TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
 times it beside its bound, the plain version and
 ``scaled_dot_product_attention``; the paged checks include 2,048-token
 contexts that take several splits and the combine pass, and each paged
-timing row says how many splits it used.
+timing row says how many splits it used.  ``migrate_blocks`` is held
+bitwise against its plain version on single pools and on the serve's four
+page tensors (ids inline, at the inline cap and past it, 2,048 pairs,
+float32 beside bfloat16) and timed as one four-tensor call (device time,
+host time, the plain version, ``index_select`` + ``index_copy_``, and one
+contiguous ``copy_`` of the same bytes as the card's practical rate); the
+``inline_cap`` line times launches with the ids inline against uploaded.
 
 Every line printed is a JSON object; the last is the run's verdict.  Needs a
 CUDA device and the repository's ``src/``; it refuses to run otherwise.
@@ -83,6 +94,17 @@ PAGED_TIMED = [("target decode B=4", 1, 32),
                ("target decode B=4 ctx=512", 1, 512),
                ("target decode B=4 ctx=1024", 1, 1024),
                ("target decode B=4 ctx=2048", 1, 2048)]
+# the serve's paged pools, (L, bs, KH, hd) of the target's and the draft's
+# K and V, over one NB+1 (1,024 blocks and the trash block)
+PAIR_POOLS = [(28, 8, 4, 128)] * 2 + [(24, 8, 2, 64)] * 2
+SERVE_NB1 = 1025
+# migrate_blocks timings over the four pools (bf16): label, M, NB+1
+MIG_TIMED = [("CoW fork, four tensors", 1, SERVE_NB1),
+             ("contraction, four tensors (the serve's draft_blocks)", 256,
+              SERVE_NB1),
+             ("contraction, four tensors, 4,097-block pools", 2048, 4097)]
+# the earlier single-tensor rows, target pool only: label, M
+MIG_TIMED_TARGET = [("CoW fork, 1 block", 1), ("contraction, 64 blocks", 64)]
 CARD = {}
 
 
@@ -203,10 +225,9 @@ def cuda_ms(torch, fn, *, iters=30, flush=None):
 
 
 def phase_kernels(torch):
-    from repro_torch.kernels.block_migration import migrate_blocks
     from repro_torch.kernels.paged_attention import (TILE, paged_attention,
                                                      split_plan)
-    from repro_torch.kernels.ref import migrate_blocks_ref, paged_attention_ref
+    from repro_torch.kernels.ref import paged_attention_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -262,42 +283,8 @@ def phase_kernels(torch):
     emit("check", kernel="paged_attention", cases=len(cases),
          max_abs_err=attn_err, atol=ATOL)
 
-    # --- block migration: bitwise -------------------------------------
-    L, NB = 28, 1024
-    mig_shapes = [(3, nb, rs) for nb, rs in ((8, (4, 2, 4)), (16, (2, 8, 16)),
-                                             (5, (3, 2, 2)))]
-    mig_shapes.append((L, NB + 1, (8, TARGET_ATTN["KH"], TARGET_ATTN["D"])))
-
-    def mig_err(pool, src, dst):
-        """Largest difference between the kernel and the plain version on
-        copies of ``pool``; the kernel must be bitwise equal."""
-        want = migrate_blocks_ref(pool.clone(), src, dst)
-        got = migrate_blocks(pool.clone(), src, dst)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        assert torch.equal(got, want), (pool.dtype, pool.shape, len(src),
-                                        err)
-        return err
-
-    mig_worst = 0.0
-    for dtype_name in ("float32", "bfloat16"):
-        for Ls, nb, rs in mig_shapes:
-            pool = torch.randn((Ls, nb) + rs, generator=gen,
-                               device="cuda").to(getattr(torch, dtype_name))
-            perm = torch.randperm(nb, generator=gen,
-                                  device="cuda").tolist()
-            m = max(nb // 2, 1)
-            src, dst = perm[:m], perm[m:2 * m][:m]
-            src = src[:len(dst)]
-            mig_worst = max(mig_worst, mig_err(pool, src, dst))
-            del pool
-            torch.cuda.empty_cache()
-    emit("check", kernel="migrate_blocks", shapes=len(mig_shapes) * 2,
-         bitwise_equal=True, max_abs_err=mig_worst)
-
     # --- times at the main-path shapes (bf16) ---------------------------
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
-    bf16 = torch.bfloat16
     attn_rows = []
     for label, T, ctx in PAGED_TIMED:
         lens, args = paged_timed_case(torch, gen, label, T, ctx)
@@ -312,32 +299,7 @@ def phase_kernels(torch):
             plain_ms=cuda_ms(torch, lambda: paged_attention_ref(*args),
                              flush=flush),
             bound_ms=bound, bound_by=by, library_ms=None))
-    mig_rows = []
-    for label, m in (("CoW fork, 1 block", 1),
-                     ("contraction, 64 blocks", 64)):
-        pool = torch.randn((L, NB + 1, 8, TARGET_ATTN["KH"],
-                            TARGET_ATTN["D"]), generator=gen,
-                           device="cuda").to(bf16)
-        src = list(range(NB - m, NB))
-        dst = list(range(m))
-        s_d = torch.tensor(src, device="cuda")
-        d_d = torch.tensor(dst, device="cuda")
-        seg_bytes = pool[0, 0].numel() * pool.element_size()
-        nbytes = 2 * m * L * seg_bytes + 8 * m
-        err = mig_err(pool, src, dst)
-        mig_worst = max(mig_worst, err)
-        mig_rows.append(dict(
-            shape=f"{label}, target pool {tuple(pool.shape)}", M=m,
-            max_abs_err=err,
-            ms=cuda_ms(torch, lambda: migrate_blocks(pool, src, dst),
-                       flush=flush),
-            plain_ms=cuda_ms(torch, lambda: migrate_blocks_ref(pool, src,
-                                                               dst),
-                             flush=flush),
-            library_ms=cuda_ms(torch, lambda: pool.index_copy_(
-                1, d_d, pool.index_select(1, s_d)), flush=flush),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"))
-        del pool
+    mig_worst, mig_rows = phase_migrate(torch, gen, flush)
     del flush
     torch.cuda.empty_cache()
     for row in attn_rows + mig_rows:
@@ -346,6 +308,169 @@ def phase_kernels(torch):
                                   + [r["max_abs_err"] for r in attn_rows]),
            "migrate_blocks": mig_worst}
     return err, attn_rows, mig_rows
+
+
+def pair_pools(torch, gen, nb1, dtypes=("bfloat16",) * 4, shapes=PAIR_POOLS):
+    """Seeded random (L, NB+1, bs, KH, hd) pools on the card."""
+    return [torch.randn((shape[0], nb1) + tuple(shape[1:]), generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+            for shape, dt in zip(shapes, dtypes)]
+
+
+def mig_plan(m, nb1):
+    """A contraction's shape of plan: the last ``m`` blocks before the
+    trash block move to the first ``m``."""
+    return list(range(nb1 - 1 - m, nb1 - 1)), list(range(m))
+
+
+def mig_bound_ms(pools, m):
+    """Each moved segment read once and written once, and the 2m ids, over
+    HBM bandwidth."""
+    seg = sum(p.shape[0] * p.stride(1) * p.element_size() for p in pools)
+    return (2 * m * seg + 8 * m) / HBM_BYTES_PER_S * 1e3
+
+
+def host_us(torch, fn, iters=30):
+    """Median host time of ``fn`` (perf_counter around the call, no
+    synchronise): what the caller's thread spends to enqueue it."""
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(ts)[iters // 2] * 1e6
+
+
+def phase_migrate(torch, gen, flush):
+    """migrate_blocks bitwise against its plain version (single pools of
+    the reference sweep and the target; the four pools at full width with
+    plans inline, at the inline cap, past it and at 2,048 pairs; float32
+    and bfloat16 in one call), then its times: the four pools as the
+    serve's CoW forks and contractions call it, and the earlier
+    single-tensor rows.  Returns (worst error, time rows)."""
+    from repro_torch.kernels.block_migration import (INLINE_CAP, _launch,
+                                                     check_plan,
+                                                     migrate_blocks)
+    from repro_torch.kernels.ref import migrate_blocks_ref
+
+    def mig_err(pools, src, dst):
+        """Largest difference between the kernel and the plain version on
+        copies of ``pools``; the kernel must be bitwise equal."""
+        want = [migrate_blocks_ref(p.clone(), src, dst) for p in pools]
+        got = migrate_blocks([p.clone() for p in pools], src, dst)
+        torch.cuda.synchronize()
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (g.dtype, g.shape, len(src), err)
+        return err
+
+    worst, checks = 0.0, 0
+    singles = [(3, nb, rs) for nb, rs in ((8, (4, 2, 4)), (16, (2, 8, 16)),
+                                          (5, (3, 2, 2)))]
+    singles.append((PAIR_POOLS[0][0], SERVE_NB1, PAIR_POOLS[0][1:]))
+    for dtype_name in ("float32", "bfloat16"):
+        for Ls, nb, rs in singles:
+            pool, = pair_pools(torch, gen, nb, (dtype_name,), [(Ls,) + rs])
+            perm = torch.randperm(nb, generator=gen, device="cuda").tolist()
+            m = max(nb // 2, 1)
+            src, dst = perm[:m], perm[m:2 * m][:m]
+            worst = max(worst, mig_err([pool], src[:len(dst)], dst))
+            checks += 1
+            del pool
+    # the four pools: float32 target beside bfloat16 draft in one call
+    pools = pair_pools(torch, gen, SERVE_NB1, ("float32",) * 2
+                       + ("bfloat16",) * 2)
+    worst = max(worst, mig_err(pools, *mig_plan(256, SERVE_NB1)))
+    checks += 1
+    by_nb1 = {}
+    for m in sorted({1, 256, INLINE_CAP, INLINE_CAP + 1, 2048}):
+        by_nb1.setdefault(max(SERVE_NB1, 2 * m + 1), []).append(m)
+    for nb1, ms in by_nb1.items():
+        pools = pair_pools(torch, gen, nb1)
+        for m in ms:
+            perm = torch.randperm(nb1, generator=gen, device="cuda").tolist()
+            worst = max(worst, mig_err(pools, perm[:m], perm[m:2 * m]))
+            checks += 1
+    del pools
+    torch.cuda.empty_cache()
+    emit("check", kernel="migrate_blocks", calls=checks, bitwise_equal=True,
+         max_abs_err=worst, inline_cap=INLINE_CAP)
+
+    rows = []
+    for label, m, nb1 in MIG_TIMED:
+        pools = pair_pools(torch, gen, nb1)
+        src, dst = mig_plan(m, nb1)
+        err = mig_err(pools, src, dst)
+        worst = max(worst, err)
+        s_d = torch.tensor(src, device="cuda")
+        d_d = torch.tensor(dst, device="cuda")
+
+        def library():
+            for p in pools:
+                p.index_copy_(1, d_d, p.index_select(1, s_d))
+        # the card's practical rate for these bytes: one contiguous copy
+        half = torch.empty(m * sum(p.shape[0] * p.stride(1) for p in pools),
+                           dtype=torch.bfloat16, device="cuda")
+        other = torch.empty_like(half)
+        copy_ms = cuda_ms(torch, lambda: other.copy_(half), flush=flush)
+        del half, other
+        rows.append(dict(
+            shape=f"{label}: M={m}, K and V of the target "
+            f"{tuple(pools[0].shape)} and the draft {tuple(pools[2].shape)}",
+            M=m, tensors=len(pools), ids="inline" if m <= INLINE_CAP
+            else "uploaded", max_abs_err=err,
+            ms=cuda_ms(torch, lambda: migrate_blocks(pools, src, dst),
+                       flush=flush),
+            plain_ms=cuda_ms(torch, lambda: [migrate_blocks_ref(p, src, dst)
+                                             for p in pools], flush=flush),
+            library_ms=cuda_ms(torch, library, flush=flush),
+            host_us=host_us(torch, lambda: migrate_blocks(pools, src, dst)),
+            contiguous_copy_ms=copy_ms, bound_ms=mig_bound_ms(pools, m),
+            bound_by="bytes"))
+        del pools
+        torch.cuda.empty_cache()
+    for label, m in MIG_TIMED_TARGET:
+        pool, = pair_pools(torch, gen, SERVE_NB1, shapes=PAIR_POOLS[:1])
+        src, dst = mig_plan(m, SERVE_NB1)
+        s_d = torch.tensor(src, device="cuda")
+        d_d = torch.tensor(dst, device="cuda")
+        err = mig_err([pool], src, dst)
+        worst = max(worst, err)
+        rows.append(dict(
+            shape=f"{label}, target pool {tuple(pool.shape)}", M=m,
+            tensors=1, ids="inline", max_abs_err=err,
+            ms=cuda_ms(torch, lambda: migrate_blocks(pool, src, dst),
+                       flush=flush),
+            plain_ms=cuda_ms(torch, lambda: migrate_blocks_ref(pool, src,
+                                                               dst),
+                             flush=flush),
+            library_ms=cuda_ms(torch, lambda: pool.index_copy_(
+                1, d_d, pool.index_select(1, s_d)), flush=flush),
+            host_us=host_us(torch, lambda: migrate_blocks(pool, src, dst)),
+            bound_ms=mig_bound_ms([pool], m), bound_by="bytes"))
+        del pool
+    # the inline cap: one launch with the ids in its parameters against one
+    # that uploads them first, on four small pools (one 32-byte segment per
+    # block), so the call is launch and ids, not copying
+    tiny = pair_pools(torch, gen, 4097, shapes=[(1, 16)] * 4)
+    cap = []
+    for m in (64, 512, 2048):
+        s, d = check_plan(*mig_plan(m, 4097), 4097)
+        row = {"M": m}
+        for how in ("inline", "uploaded"):
+            def call():
+                _launch(tiny, s, d, inline=how == "inline")
+            row[f"{how}_host_us"] = host_us(torch, call)
+            row[f"{how}_ms"] = cuda_ms(torch, call)
+        cap.append(row)
+    emit("inline_cap", kernel="migrate_blocks", inline_cap=INLINE_CAP,
+         pools="four of (1, 4097, 16) bf16", rows=cap)
+    del tiny
+    torch.cuda.empty_cache()
+    return worst, rows
 
 
 def flash_bound(B, S, H, KH, D, dtype_name, es):
@@ -521,6 +646,124 @@ def phase_serve(torch):
     del engine
     torch.cuda.empty_cache()
     return counts, params
+
+
+def tree_bytes(tree):
+    return sum(tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in tree.values())
+
+
+def phase_elastic_full(torch, params):
+    """The elastic pool's whole cycle (paper §6.3-6.4) at full width and
+    depth, bf16: ``build_real_engine``'s pool (1,024 blocks) and memory
+    manager (draft_blocks 256), driven by hand.  Block tables fill the base
+    region, speculation is off, so the manager offloads the draft and grows
+    the pools; sequences take the whole expanded region; every page tensor
+    gets seeded random bits; the base tables finish and, with the queue
+    empty, the manager migrates the 256 blocks, trims the pools and
+    reloads the draft.  Each moved block must carry its source's bits on
+    all four tensors, and the reloaded draft runs one decode step.  Times
+    the manager's grow, migrate, shrink, offload and reload hooks (host
+    clock between synchronises), and the same move repeated through
+    ``migrate_pools`` afterwards (median of five).  Returns the kernel
+    launches of the contraction."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_real_engine
+    from repro_torch.serving.kv_cache import MigrationPlan
+    cfg = configs.get_config("paper-7b")
+    dcfg = configs.get_draft_config("paper-7b")
+    engine = build_real_engine(cfg, dcfg, device="cuda", dtype="bfloat16",
+                               seed=0, params=params)
+    be, mm = engine.backend, engine.memmgr
+    bm = be.bm
+    nb, extra, bs = bm.base_blocks, mm.draft_blocks, bm.block_size
+    assert (nb, extra) == (SERVE_NB1 - 1, 256), (nb, extra)
+    ms = {}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+    for hook in ("offload", "grow", "migrate", "shrink", "reload"):
+        setattr(mm, f"{hook}_fn", timed(hook, getattr(mm, f"{hook}_fn")))
+
+    per_seq = 8                        # blocks per sequence
+    fillers = range(nb // per_seq)
+    for i in fillers:
+        bm.allocate(i, per_seq * bs)
+    assert bm.num_allocatable == 0
+    for step in range(mm.t_persist):
+        mm.step(float(step), spec_disabled=True, waiting=1)
+    assert not be.draft_resident and bm.total_blocks == nb + extra
+    live = range(nb, nb + extra // per_seq)
+    for i in live:
+        bm.allocate(i, per_seq * bs)
+    old = {i: list(bm.tables[i]) for i in live}
+    assert sorted(b for t in old.values() for b in t) == list(
+        range(nb, nb + extra))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    keys = [(m, k) for m in ("tkv", "dkv") for k in ("k_pages", "v_pages")]
+    for m, k in keys:
+        getattr(be, m).pages[k].normal_(generator=gen)
+    high = {(m, k): getattr(be, m).pages[k][:, nb:nb + extra].clone()
+            for m, k in keys}
+    for i in fillers:
+        bm.release(i)
+    reset_counts()
+    mm.step(float(mm.t_persist), spec_disabled=False, waiting=0)
+    counts = read_counts()
+    ev = {e.kind: e for e in mm.events}
+    assert [e.kind for e in mm.events] == ["offload", "expand", "contract",
+                                           "reload"], mm.events
+    moved = ev["contract"].detail["migrated_blocks"]
+    assert moved == extra, moved
+    assert be.draft_resident and bm.total_blocks == nb
+    src = torch.tensor([b - nb for i in live for b in old[i]], device="cuda")
+    dst = torch.tensor([b for i in live for b in bm.tables[i]],
+                       device="cuda")
+    assert int(dst.max()) < nb
+    for m, k in keys:
+        now = getattr(be, m).pages[k]
+        assert now.shape[1] == nb + 1, now.shape
+        assert torch.equal(now[:, dst].view(torch.int16),
+                           high[m, k][:, src].view(torch.int16)), (m, k)
+    del high
+    # the reloaded draft decodes one token on a moved sequence's table
+    i = live[0]
+    logits, _ = be.draft.decode_step_paged(
+        be.dparams, be.dkv.pages,
+        torch.zeros((1, 1), dtype=torch.long, device="cuda"),
+        torch.tensor([bm.tables[i]], dtype=torch.int32, device="cuda"),
+        torch.tensor([per_seq * bs - 1], dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    assert logits.shape == (1, 1, dcfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all()
+    # the same 256-block move again through migrate_pools, on the trimmed
+    # pools (the moved blocks to free ones), with the card busy and the
+    # kernel loaded: what the step costs without a cold start
+    again = sorted(be.migrate_pools(MigrationPlan(
+        src=sorted(dst.tolist()), dst=sorted(bm.free)[:extra])) * 1e3
+        for _ in range(5))
+    ms["migrate_again"] = again[2]
+    block_bytes = be.tkv.bytes_per_block + be.dkv.bytes_per_block
+    emit("elastic_full", model="paper-7b full width and depth, bf16, "
+         "build_real_engine's pool", base_blocks=nb, draft_blocks=extra,
+         migrated_blocks=moved, ms=ms,
+         contract_event_ms=ev["contract"].latency * 1e3,
+         moved_bytes=2 * moved * block_bytes,
+         migrate_bound_ms=2 * moved * block_bytes / HBM_BYTES_PER_S * 1e3,
+         shrink_bound_ms=2 * (nb + 1) * block_bytes / HBM_BYTES_PER_S * 1e3,
+         grow_bound_ms=(2 * (nb + 1) + extra) * block_bytes
+         / HBM_BYTES_PER_S * 1e3, draft_bytes=tree_bytes(be.dparams),
+         launches=counts, draft_step_logits_finite=True)
+    del engine, be, mm
+    torch.cuda.empty_cache()
+    return counts
 
 
 def fp32_cut(depth=4):
@@ -789,6 +1032,8 @@ def main() -> int:
     err, attn_rows, mig_rows = phase_kernels(torch)
     flash_err, flash_rows = phase_flash(torch)
     counts, full_params = phase_serve(torch)
+    elastic = phase_elastic_full(torch, full_params)
+    assert elastic["migrate_blocks"] == 1, elastic     # one launch per set
     # the dense path's launches: flash_attention runs there, not on the
     # paged path
     counts["flash_attention"] = phase_dense_serve(torch, full_params)[

@@ -26,14 +26,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v"]
 
-_c_void_p, _c_int, _c_longlong, _c_float = (ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_longlong, ctypes.c_float)
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention_launch": [_c_void_p] * 8 + [_c_int] * 9
     + [_c_float, _c_int, _c_void_p],
-    "migrate_blocks_launch": [_c_void_p] * 3 + [_c_int, _c_int, _c_longlong,
-                                                _c_longlong, _c_int,
-                                                _c_void_p],
+    "migrate_blocks_launch": [_c_void_p, _c_int, _c_void_p, _c_void_p,
+                              _c_int, _c_void_p],
     "flash_attention_launch": [_c_void_p] * 4 + [_c_int] * 8
     + [_c_float, _c_int, _c_void_p],
 }

@@ -7,8 +7,9 @@ remapping) faithfully:
   * ``BlockManager`` — logical bookkeeping: free list, refcounts, per-sequence
     block tables, K_boundary, migration-plan construction (§6.4 steps 1-2, 4-5).
   * the physical (L, num_blocks + 1, block_size, KH, hd) pages live in
-    ``paged_runtime.PagedKVRuntime``, whose ``apply_plan`` executes the §6.4
-    step-3 data movement through the block-migration kernel.
+    ``paged_runtime.PagedKVRuntime``; ``paged_runtime.apply_copies``
+    executes the §6.4 step-3 data movement through the block-migration
+    kernel.
 
 Prefix sharing (``prefix_caching=True``) adds a content-hash index over
 *full* prefix blocks, hash-chained over token ids:

@@ -22,7 +22,7 @@ import torch
 
 from ..kernels.block_migration import migrate_blocks
 from ..models.registry import ModelAPI
-from .kv_cache import BlockManager, MigrationPlan
+from .kv_cache import BlockManager
 from .request import Sequence
 
 
@@ -58,6 +58,21 @@ def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.to(device=like.device, dtype=like.dtype)
 
 
+def apply_copies(runtimes: Seq["PagedKVRuntime"], src: Seq[int],
+                 dst: Seq[int]) -> None:
+    """Block copies src[i] -> dst[i] on the device, on every page tensor of
+    ``runtimes`` (the target's and the draft's K and V) in ONE
+    block-migration call, so one kernel launch per copy set: the CoW forks
+    before a step's writes and the §6.4 step-3 contraction moves share it.
+    Only the int32 ids travel.  Replaces the reference's per-runtime
+    ``PagedKVRuntime.apply_copies`` and ``apply_plan``, which run one
+    migration per page tensor."""
+    if not len(src):
+        return
+    migrate_blocks([rt.pages[key] for rt in runtimes
+                    for key in ("k_pages", "v_pages")], src, dst)
+
+
 class PagedKVRuntime:
     """Physical paged KV pool + host length bookkeeping for one model."""
 
@@ -81,21 +96,9 @@ class PagedKVRuntime:
         return 2 * L * bs * kh * hd * k.element_size()  # k + v
 
     # ------------------------------------------------------------------
-    # copy-on-write + elastic physical pool (§6.3/6.4 on the real tier)
+    # host KV tier and elastic physical pool (§6.3/6.4 on the real tier);
+    # the block copies are the module's ``apply_copies``, over both runtimes
     # ------------------------------------------------------------------
-    def apply_copies(self, src: Seq[int], dst: Seq[int]) -> None:
-        """Block copies src[i] -> dst[i] on the device, ONE block-migration
-        launch per page tensor (the CoW fork path and the §6.4 step-3 data
-        movement share the kernel).  Only the int32 ids travel."""
-        if not len(src):
-            return
-        for key in ("k_pages", "v_pages"):
-            migrate_blocks(self.pages[key], src, dst)
-
-    def apply_plan(self, plan: MigrationPlan) -> None:
-        """§6.4 step 3 on the physical paged pools."""
-        self.apply_copies(plan.src, plan.dst)
-
     def spill_blocks(self, ids: Seq[int]) -> Dict[str, np.ndarray]:
         """Device->host gather of whole blocks for the host KV offload tier:
         one batched index gather per page tensor.  Returned arrays have

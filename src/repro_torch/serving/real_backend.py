@@ -37,7 +37,8 @@ from ..core.spec_decode import (make_ar_step, make_paged_ar_step,
 from ..models.registry import ModelAPI, tree_to
 from .engine import StepOutcome
 from .kv_cache import BlockManager, OutOfBlocks
-from .paged_runtime import PagedKVRuntime, bucket_size, num_blocks_for
+from .paged_runtime import (PagedKVRuntime, apply_copies, bucket_size,
+                            num_blocks_for)
 from .request import Sequence
 
 
@@ -222,18 +223,17 @@ class RealBackend:
 
     def _apply_pending_copies(self) -> None:
         """Execute the BlockManager's queued CoW forks on the device (one
-        block-migration launch per page tensor) BEFORE this step's writes,
-        so a privatised block carries its shared content when written.
-        Host-tier spills/restores drain first: a spill must read its
-        block's pages before a CoW copy or step write can touch them."""
+        block-migration launch over all four page tensors) BEFORE this
+        step's writes, so a privatised block carries its shared content
+        when written.  Host-tier spills/restores drain first: a spill must
+        read its block's pages before a CoW copy or step write can touch
+        them."""
         self.apply_host_transfers()
         copies = self.bm.drain_pending_copies()
         if not copies:
             return
-        src = [c[0] for c in copies]
-        dst = [c[1] for c in copies]
-        self.tkv.apply_copies(src, dst)
-        self.dkv.apply_copies(src, dst)
+        apply_copies((self.tkv, self.dkv), [c[0] for c in copies],
+                     [c[1] for c in copies])
 
     def reserve(self, seqs: List[Sequence], gamma: int) -> List[Sequence]:
         """Grow block tables to cover this step's gamma+1 KV writes BEFORE
@@ -272,14 +272,14 @@ class RealBackend:
 
     def migrate_pools(self, plan) -> float:
         """§6.4 step 3: execute the contraction's block moves on both pools
-        (ElasticMemoryManager ``migrate_fn``); returns wall-clock seconds.
+        (ElasticMemoryManager ``migrate_fn``), one block-migration launch
+        over all four page tensors; returns wall-clock seconds.
         Contraction-time spills flush first — the spilled high blocks'
         pages must be captured before migration reuses their below-boundary
         targets and before ``shrink_pools`` trims the high region."""
         self.apply_host_transfers()
         t0 = time.perf_counter()
-        self.tkv.apply_plan(plan)
-        self.dkv.apply_plan(plan)
+        apply_copies((self.tkv, self.dkv), plan.src, plan.dst)
         _device.synchronize(self.device)
         return time.perf_counter() - t0
 

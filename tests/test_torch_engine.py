@@ -133,9 +133,13 @@ def _cfgs():
 
 
 def _run(pkg, *, policy, params=None, blocks=256, block_size=8, chunk=None,
-         prefix_caching=False, template=0, memmgr=False, prompt=10, out=8):
+         prefix_caching=False, template=0, memmgr=False, prompt=10, out=8,
+         wave2=0, watch=None):
     """The reference's engine recipe (tests/test_paged_backend.py) through
-    one package; returns streams, metrics and the backend."""
+    one package; returns streams, metrics and the backend.  ``policy`` is a
+    name or a policy object; ``wave2`` more requests arrive once the first
+    four have drained; ``watch(backend, memory_manager)`` runs before the
+    engine does."""
     jt, jd, tt, td = _cfgs()
     if pkg == "jax":
         target, draft = jregistry.get_model(jt), jregistry.get_model(jd)
@@ -161,9 +165,18 @@ def _run(pkg, *, policy, params=None, blocks=256, block_size=8, chunk=None,
                     offload_fn=be.offload_draft, reload_fn=be.reload_draft,
                     migrate_fn=be.migrate_pools, grow_fn=be.grow_pools,
                     shrink_fn=be.shrink_pools)
-    eng = eng_cls(be, sched, mkpol(policy, 3, seed=0), mm, gamma_max=3)
+    pol = mkpol(policy, 3, seed=0) if isinstance(policy, str) else policy
+    eng = eng_cls(be, sched, pol, mm, gamma_max=3)
     reqs = tiny(4, rate_qps=1e6, prompt_len=prompt, output_len=out,
                 vocab=target.cfg.vocab_size, seed=5, template_len=template)
+    later = tiny(wave2, rate_qps=1e6, prompt_len=prompt, output_len=out,
+                 vocab=target.cfg.vocab_size, seed=6) if wave2 else []
+    for r in later:
+        r.req_id += len(reqs)
+        r.arrival += 1e4      # long after the first wave has drained
+    reqs += later
+    if watch is not None:
+        watch(be, mm)
     m = eng.run(reqs, max_steps=3000)
     streams = {r.req_id: be.output_tokens(r.req_id)[:out + 1] for r in reqs}
     return streams, m, be
@@ -227,3 +240,128 @@ def test_target_as_draft_accepts_and_equals_ar():
     assert acc["nightjar"] > 0
     assert out["nightjar"] == out["ar"]
 
+
+
+# ---------------------------------------------------------------------------
+# the elastic pool's whole cycle: offload, expand, contraction, shrink, reload
+# ---------------------------------------------------------------------------
+
+
+class _Scripted:
+    """gamma 0 while three or more sequences run (speculation off, so the
+    memory manager may offload the draft), 2 below: the same choices in
+    both packages, where the planner's follow measured latencies."""
+    name = "scripted"
+
+    def select(self, batch, *, delta_max=0):
+        return 0 if batch >= 3 else 2
+
+    def observe(self, *args, **kw):
+        pass
+
+
+# 24 blocks of 4 under four requests of 10 + 12 tokens: the draft goes, the
+# pool grows to 28, and the last sequences to run hold blocks above the
+# boundary; the second wave, admitted with the queue empty, then takes some
+# of those blocks, so the contraction has to move them
+CYCLE = dict(policy=_Scripted(), blocks=24, block_size=4, out=12,
+             memmgr=True, wave2=2)
+PAGE_KEYS = [f"{m}:{k}" for m in "td" for k in ("k_pages", "v_pages")]
+
+
+def _pages(be):
+    """Copies of the backend's four page tensors as float32 numpy arrays."""
+    return {f"{m}:{k}": np.array(getattr(be, f"{m}kv").pages[k], np.float32)
+            for m in "td" for k in ("k_pages", "v_pages")}
+
+
+def _watch_cycle(rec, feed=None):
+    """Hooks around the memory manager's migrate and shrink: record the
+    plan, the pages before the moves and after the trim, and the live
+    tables; with ``feed``, load those page bits into the backend before it
+    migrates (the same input for both packages' moves)."""
+    def watch(be, mm):
+        rec["mm"] = mm
+        migrate, shrink = mm.migrate_fn, mm.shrink_fn
+
+        def migrate_fn(plan):
+            rec["plan"] = (list(plan.src), list(plan.dst))
+            rec["before"] = _pages(be)
+            if feed is not None:
+                for key in PAGE_KEYS:
+                    m, k = key.split(":")
+                    getattr(be, f"{m}kv").pages[k].copy_(
+                        torch.from_numpy(feed[key]))
+            return migrate(plan)
+
+        def shrink_fn(n):
+            shrink(n)
+            rec["after"] = _pages(be)
+            rec["live"] = sorted({b for t in mm.bm.tables.values()
+                                  for b in t})
+        mm.migrate_fn, mm.shrink_fn = migrate_fn, shrink_fn
+    return watch
+
+
+def test_contraction_cycle_matches_jax():
+    """The memory manager completes offload -> expand -> contraction (with
+    blocks to move) -> shrink -> reload in both packages: the same plan, the
+    same greedy streams, and, from the JAX run's page bits before the moves,
+    the port's four page tensors after the trim equal the JAX backend's
+    bitwise on every block a live table references."""
+    jrec, rec = {}, {}
+    want, jm, jbe = _run("jax", watch=_watch_cycle(jrec), **CYCLE)
+    got, m, _ = _run("torch", params=_bridged(jbe),
+                     watch=_watch_cycle(rec, feed=jrec["before"]), **CYCLE)
+    assert got == want
+    kinds = [e.kind for e in rec["mm"].events]
+    assert kinds[:4] == ["offload", "expand", "contract", "reload"], kinds
+    moved = [e.detail["migrated_blocks"] for e in rec["mm"].events
+             if e.kind == "contract"]
+    jmoved = [e.detail["migrated_blocks"] for e in jrec["mm"].events
+              if e.kind == "contract"]
+    assert moved == jmoved and moved[0] >= 1, (moved, jmoved)
+    assert rec["plan"] == jrec["plan"] and rec["live"] == jrec["live"]
+    assert m.reload_events >= 1 and jm.reload_events >= 1
+    live = rec["live"]
+    src, dst = rec["plan"]
+    for key in PAGE_KEYS:
+        # the port's own pages before the moves agree with the JAX run's
+        np.testing.assert_allclose(rec["before"][key][:, live],
+                                   jrec["before"][key][:, live], atol=1e-4)
+        np.testing.assert_array_equal(rec["after"][key][:, live],
+                                      jrec["after"][key][:, live])
+        # and each moved block carries its source's bits
+        np.testing.assert_array_equal(rec["after"][key][:, dst],
+                                      jrec["before"][key][:, src])
+
+
+def test_backend_migrates_once_per_copy_set(monkeypatch):
+    """Every CoW copy set and every contraction is one migrate_blocks call
+    over the four page tensors (one kernel launch on the card)."""
+    from repro_torch.kernels.block_migration import migrate_blocks
+    from repro_torch.serving import paged_runtime
+    calls, sets = [], []
+
+    def recording(pools, src, dst):
+        calls.append((len(pools), len(src)))
+        return migrate_blocks(pools, src, dst)
+
+    drain = kv_cache.BlockManager.drain_pending_copies
+
+    def counted(self):
+        out = drain(self)
+        if out:
+            sets.append(len(out))
+        return out
+
+    monkeypatch.setattr(paged_runtime, "migrate_blocks", recording)
+    monkeypatch.setattr(kv_cache.BlockManager, "drain_pending_copies",
+                        counted)
+    _, m, _ = _run("torch", policy="nightjar", chunk=8, prompt=16,
+                   template=16, prefix_caching=True)
+    assert m.prefix["forks"] > 0 and sets
+    rec = {}
+    _run("torch", watch=_watch_cycle(rec), **CYCLE)
+    sets.append(len(rec["plan"][0]))
+    assert sorted(calls) == sorted((4, n) for n in sets)

@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.block_migration import migrate_blocks  # noqa: E402
+from repro_torch.kernels.block_migration import (  # noqa: E402
+    INLINE_CAP, migrate_blocks)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     TILE, paged_attention, split_plan)
@@ -169,6 +170,68 @@ def test_migrate_blocks_rejects_unsafe_plans(src, dst, msg):
     pool = torch.zeros((2, 4, 2, 1, 4))
     with pytest.raises(ValueError, match=msg):
         migrate_blocks(pool, src, dst)
+
+
+# the paper-7b pair's four page tensors at narrow widths: target (L=3, bs 4,
+# KH 2, hd 8) and draft (L=2, bs 4, KH 1, hd 4) K and V, unequal layer
+# counts and segment sizes over one NB+1
+PAIR_POOLS = [(3, (4, 2, 8)), (3, (4, 2, 8)), (2, (4, 1, 4)), (2, (4, 1, 4))]
+
+
+def _pair_pools(nb, dtypes, seed=0, pools=PAIR_POOLS):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(L, nb) + rs).astype(np.float32)
+            for L, rs in pools], list(dtypes)
+
+
+@pytest.mark.parametrize("dtypes", [("float32",) * 4, ("bfloat16",) * 4,
+                                    ("float32", "float32", "bfloat16",
+                                     "bfloat16")])
+def test_plain_migrate_blocks_four_pools_bitwise_equals_jax(jx, dtypes):
+    """One call over the four page tensors equals the JAX migrate_blocks
+    applied to each tensor."""
+    xs, dtypes = _pair_pools(17, dtypes)
+    src, dst = _plan(17)
+    jnp = jx.jnp
+    pools = [torch.from_numpy(x).to(getattr(torch, dt))
+             for x, dt in zip(xs, dtypes)]
+    got = migrate_blocks(pools, src, dst)
+    assert got is pools                    # in place
+    for x, dt, pool in zip(xs, dtypes, pools):
+        want = jx.migrate(jnp.asarray(x).astype(getattr(jnp, dt)),
+                          jnp.asarray(src), jnp.asarray(dst),
+                          use_kernel=False)
+        np.testing.assert_array_equal(pool.float().numpy(),
+                                      np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("other", [torch.zeros((2, 5, 2, 1, 4)),
+                                   torch.zeros((2, 4, 2, 1, 4),
+                                               device="meta")],
+                         ids=["nb", "device"])
+def test_migrate_blocks_rejects_mismatched_pools(other):
+    with pytest.raises(ValueError, match="NB\\+1 or device differ"):
+        migrate_blocks([torch.zeros((2, 4, 2, 1, 4)), other], [0], [1])
+
+
+@pytest.mark.parametrize("src,dst,msg", [
+    ([0, 1], [1, 2], "overlap"),
+    ([0, 1], [2, 2], "repeat"),
+    ([0], [9], "out of range"),
+    ([-1], [2], "out of range"),
+    ([0, 1], [2], "destinations"),
+])
+def test_migrate_blocks_four_pools_reject_unsafe_plans(src, dst, msg):
+    pools = [torch.zeros((L, 4) + rs) for L, rs in PAIR_POOLS]
+    with pytest.raises(ValueError, match=msg):
+        migrate_blocks(pools, src, dst)
+    assert all(not p.any() for p in pools)
+
+
+@pytest.mark.parametrize("n", [0, 9])
+def test_migrate_blocks_rejects_pool_counts(n):
+    with pytest.raises(ValueError, match="1 to 8 pools"):
+        migrate_blocks([torch.zeros((1, 4, 2))] * n, [0], [1])
 
 
 # the reference's flash sweep (tests/test_kernels.py): (B, S, H, KH, D)
@@ -331,6 +394,56 @@ def test_cuda_migrate_blocks_bitwise_equals_plain(dtype, nb, row_shape):
     got = migrate_blocks(x, src, dst)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _cuda_pair_pools(nb, dtypes, pools=PAIR_POOLS):
+    gen = torch.Generator().manual_seed(0)
+    return [torch.randn((L, nb) + rs, generator=gen).to(
+        getattr(torch, dt)).cuda() for (L, rs), dt in zip(pools, dtypes)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", sorted({1, INLINE_CAP, INLINE_CAP + 1, 2048}))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_migrate_blocks_four_pools_one_launch(M, dtype):
+    """The four-tensor call at the paper-7b target's block (8, 4, 128) and
+    the draft's (8, 2, 64), with ids inline (M <= INLINE_CAP) and uploaded:
+    bitwise equal to the plain version, one launch per call."""
+    _need_cuda()
+    nb = 2 * M + 3
+    pools = _cuda_pair_pools(nb, (dtype,) * 4,
+                             [(3, (8, 4, 128))] * 2 + [(2, (8, 2, 64))] * 2)
+    perm = torch.randperm(nb, generator=torch.Generator().manual_seed(M))
+    src, dst = perm[:M].tolist(), perm[M:2 * M].tolist()
+    want = [tref.migrate_blocks_ref(p.clone(), src, dst) for p in pools]
+    n = migrate_blocks.launches
+    migrate_blocks(pools, src, dst)
+    torch.cuda.synchronize()
+    assert migrate_blocks.launches == n + 1
+    for got, w in zip(pools, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("float32", "bfloat16") * 2,
+                                    ("bfloat16", "float32") * 2])
+@pytest.mark.parametrize("pools", [
+    [(3, (3, 2, 2)), (3, (4, 2, 4)), (2, (3, 2, 2)), (2, (2, 8, 16))],
+    PAIR_POOLS], ids=["ragged", "pair"])
+def test_cuda_migrate_blocks_mixed_and_ragged_pools(pools, dtypes):
+    """Float32 and bfloat16 pools in one call, and segments that are not a
+    multiple of 16 bytes (the (3, 2, 2) rows, which take the word loop)
+    beside ones that are: bitwise equal to the plain version."""
+    _need_cuda()
+    ps = _cuda_pair_pools(33, dtypes, pools)
+    src, dst = _plan(33)
+    want = [tref.migrate_blocks_ref(p.clone(), src, dst) for p in ps]
+    n = migrate_blocks.launches
+    migrate_blocks(ps, src, dst)
+    torch.cuda.synchronize()
+    assert migrate_blocks.launches == n + 1
+    for got, w in zip(ps, want):
+        assert torch.equal(got, w)
 
 
 FLASH_CUDA = [(shape, causal, prefix)

@@ -19,7 +19,8 @@ from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.serving import costmodel  # noqa: E402
 from repro_torch.serving.kv_cache import BlockManager  # noqa: E402
-from repro_torch.serving.paged_runtime import PagedKVRuntime  # noqa: E402
+from repro_torch.serving.paged_runtime import (  # noqa: E402
+    PagedKVRuntime, apply_copies)
 
 ARCHS = ["paper-7b", "deepseek-7b", "qwen3-14b"]
 
@@ -142,7 +143,7 @@ def test_cow_fork_copy_preserves_logits():
     assert matched == P
     bm.share(2, blocks, P - 1)
     (src, dst), = bm.fork_for_write(2, P - 1, P)
-    rt.apply_copies(*zip(*bm.drain_pending_copies()))
+    apply_copies([rt], *zip(*bm.drain_pending_copies()))
     tbl2 = torch.as_tensor([bm.tables[2]], dtype=torch.int32)
     start = torch.full((1,), P - 1, dtype=torch.int32)
     lg2, _ = api.decode_step_paged(tp, rt.pages, tok[:, -1:], tbl2, start)
