@@ -32,26 +32,44 @@ Phases (any failed check raises, and the script exits non-zero):
                dense AR, paged and dense target-as-draft streams are equal;
   9. cswitch — the paper's Table 3 on the card: the full-width bf16 draft's
                dense prefill timed on the (delta, batch) grid through
-               ``CSwitchTable.profile``.
+               ``CSwitchTable.profile``;
+ 10. moe_serve — the MoE decoder's main path: the full-width, full-depth
+               bf16 granite-moe-1b-a400m pair served as in phase 3, then the
+               same requests again with the dropped (token, expert) slots
+               counted per call kind (decode, verify, prefill chunk);
+ 11. vlm_serve — the paligemma-3b pair (head_dim 256, MQA) served as in
+               phase 3, text only as the reference's real tier serves it;
+ 12. vlm_prefix — paligemma's image-prefix path: ``prefill`` of 256 image
+               rows + 16 text tokens (the flash kernel at D = 256 with
+               ``prefix_len`` 256), 8 ``decode_step``s, held against
+               ``forward`` at full width in bf16 and at 4 layers in fp32;
+ 13. moe_lossless — granite at full width and 4 layers, fp32, capacity
+               factor 8.0 (no drops): AR, fixed-2, Nightjar and
+               target-as-draft greedy streams are equal.
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
 times it beside its bound, the plain version and
 ``scaled_dot_product_attention``; the paged checks include 2,048-token
 contexts that take several splits and the combine pass, and each paged
-timing row says how many splits it used.  ``migrate_blocks`` is held
-bitwise against its plain version on single pools and on the serve's four
-page tensors (ids inline, at the inline cap and past it, 2,048 pairs,
-float32 beside bfloat16) and timed as one four-tensor call (device time,
-host time, the plain version, ``index_select`` + ``index_copy_``, and one
-contiguous ``copy_`` of the same bytes as the card's practical rate); the
-``inline_cap`` line times launches with the ids inline against uploaded.
+timing row says how many splits it used.  The new pairs' heads
+(paligemma's D = 256 with G = 8, granite's D = 64 with G = 2) are checked
+at their served shapes and at 512 / 2,048 tokens, and flash at D = 256
+with the image prefix; their timing rows stand beside the paper-7b ones.
+``migrate_blocks`` is held bitwise against its plain version on single
+pools and on the serve's four page tensors (ids inline, at the inline cap
+and past it, 2,048 pairs, float32 beside bfloat16) and timed as one
+four-tensor call (device time, host time, the plain version,
+``index_select`` + ``index_copy_``, and one contiguous ``copy_`` of the
+same bytes as the card's practical rate); the ``inline_cap`` line times
+launches with the ids inline against uploaded.
 
 Every line printed is a JSON object; the last is the run's verdict.  Needs a
 CUDA device and the repository's ``src/``; it refuses to run otherwise.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -67,6 +85,9 @@ ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 TARGET_ATTN = dict(H=28, KH=4, D=128)          # paper-7b target
 DRAFT_ATTN = dict(H=14, KH=2, D=64)            # paper-7b draft
+PALI_ATTN = dict(H=8, KH=1, D=256)             # paligemma-3b target (MQA)
+GRANITE_ATTN = dict(H=16, KH=8, D=64)          # granite-moe-1b target
+GRANITE, PALIGEMMA = "granite-moe-1b-a400m", "paligemma-3b"
 REF_SWEEP = [(2, 4, 4, 64, 16, 3), (3, 8, 2, 64, 16, 4), (2, 8, 1, 128, 8, 5)]
 # flash attention checks: (B, Sq, Sk, H, KH, D, causal, prefix_len)
 FLASH_CASES = [
@@ -79,12 +100,22 @@ FLASH_CASES = [
     (1, 200, 200, 4, 4, 128, True, 0), (2, 37, 37, 4, 4, 64, False, 0),
     (1, 37, 37, 4, 2, 32, True, 0), (1, 200, 37, 28, 4, 128, False, 0),
     (2, 130, 130, 4, 4, 64, True, 130), (1, 200, 200, 4, 4, 32, True, 0)]
-# flash attention timings (bf16, causal): label, B, S, H, KH, D
-FLASH_TIMED = [("dense serve prefill", 1, 16, 28, 4, 128),
-               ("C_switch delta=128 B=2", 2, 128, 14, 2, 64),
-               ("C_switch delta=256 B=8", 8, 256, 14, 2, 64),
-               ("C_switch delta=512 B=32", 32, 512, 14, 2, 64),
-               ("long target prefill", 1, 2048, 28, 4, 128)]
+# head_dim 256, held at ATOL (2e-2 in bf16): paligemma's image-prefix
+# prefill (256 image rows + 16 text tokens, MQA), ragged corners, gemma-7b's
+# MHA heads
+FLASH_256_CASES = [
+    (2, 272, 272, 8, 1, 256, True, 256), (1, 37, 37, 8, 1, 256, True, 0),
+    (1, 200, 200, 8, 1, 256, True, 130), (2, 37, 200, 8, 1, 256, False, 0),
+    (1, 130, 130, 16, 16, 256, True, 0)]
+# flash attention timings (bf16, causal): label, B, S, H, KH, D,
+# prefix_len
+FLASH_TIMED = [("dense serve prefill", 1, 16, 28, 4, 128, 0),
+               ("C_switch delta=128 B=2", 2, 128, 14, 2, 64, 0),
+               ("C_switch delta=256 B=8", 8, 256, 14, 2, 64, 0),
+               ("C_switch delta=512 B=32", 32, 512, 14, 2, 64, 0),
+               ("long target prefill", 1, 2048, 28, 4, 128, 0),
+               ("paligemma image-prefix prefill", 2, 272, 8, 1, 256, 256),
+               ("granite dense prefill", 1, 16, 16, 8, 64, 0)]
 # paged attention timings (bf16, B = 4, 8-position blocks): label, T,
 # context
 PAGED_TIMED = [("target decode B=4", 1, 32),
@@ -93,7 +124,18 @@ PAGED_TIMED = [("target decode B=4", 1, 32),
                ("draft decode B=4", 1, 32),
                ("target decode B=4 ctx=512", 1, 512),
                ("target decode B=4 ctx=1024", 1, 1024),
-               ("target decode B=4 ctx=2048", 1, 2048)]
+               ("target decode B=4 ctx=2048", 1, 2048),
+               ("paligemma decode B=4", 1, 32),
+               ("paligemma verify gamma=3 B=4", 4, 32),
+               ("paligemma prefill T=16 B=4", 16, 16),
+               ("paligemma decode B=4 ctx=512", 1, 512),
+               ("paligemma decode B=4 ctx=2048", 1, 2048),
+               ("granite decode B=4", 1, 32),
+               ("granite verify gamma=3 B=4", 4, 32),
+               ("granite decode B=4 ctx=2048", 1, 2048)]
+# the heads of each PAGED_TIMED row, by the first word of its label
+TIMED_ATTN = {"target": TARGET_ATTN, "draft": DRAFT_ATTN,
+              "paligemma": PALI_ATTN, "granite": GRANITE_ATTN}
 # the serve's paged pools, (L, bs, KH, hd) of the target's and the draft's
 # K and V, over one NB+1 (1,024 blocks and the trash block)
 PAIR_POOLS = [(28, 8, 4, 128)] * 2 + [(24, 8, 2, 64)] * 2
@@ -177,7 +219,7 @@ def attn_case(torch, gen, *, B, T, H, KH, D, bs, lengths, dtype):
 def paged_timed_case(torch, gen, label, T, ctx):
     """(lengths, inputs) of one PAGED_TIMED row: four sequences of ``ctx``
     positions of context, with the draft's heads on a draft row."""
-    attn = DRAFT_ATTN if label.startswith("draft") else TARGET_ATTN
+    attn = TIMED_ATTN[label.split()[0]]
     lens = [ctx + T - 2 * i for i in range(4)]
     return lens, attn_case(torch, gen, B=4, T=T, bs=8, lengths=lens,
                            dtype=torch.bfloat16, **attn)
@@ -240,8 +282,8 @@ def phase_kernels(torch):
             lens = [T + (7 * i) % (maxb * bs - T + 1) for i in range(B)]
             cases.append((None, dict(B=B, T=T, H=H, KH=KH, D=D, bs=bs,
                                      lengths=lens)))
-    # the serve's shapes: one split, so one launch
-    for attn in (TARGET_ATTN, DRAFT_ATTN):
+    # the serves' shapes: one split, so one launch
+    for attn in (TARGET_ATTN, DRAFT_ATTN, PALI_ATTN, GRANITE_ATTN):
         for B in (1, 4):
             for T in (1, 2, 3, 4, 16):
                 lens = [T + 5 + 9 * i for i in range(B)]
@@ -251,10 +293,13 @@ def phase_kernels(torch):
                              **TARGET_ATTN)))
     cases.append((None, dict(B=2, T=64, bs=4, lengths=[64, 100],
                              **DRAFT_ATTN)))
+    for attn in (PALI_ATTN, GRANITE_ATTN):     # 512 tokens: split-KV
+        cases.append((None, dict(B=4, T=1, bs=8, lengths=[512, 500, 300, 17],
+                                 **attn)))
     # split-KV: 2,048 tokens of context with ragged lengths in one batch,
     # one sequence shorter than a split and one ending on a split boundary
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for attn in (TARGET_ATTN, DRAFT_ATTN):
+    for attn in (TARGET_ATTN, DRAFT_ATTN, PALI_ATTN, GRANITE_ATTN):
         for T in (1, 4, 16):
             rows = T * attn["H"] // attn["KH"]
             n, per = split_plan(4, attn["KH"], rows, 2048, sms)
@@ -473,11 +518,13 @@ def phase_migrate(torch, gen, flush):
     return worst, rows
 
 
-def flash_bound(B, S, H, KH, D, dtype_name, es):
+def flash_bound(B, S, H, KH, D, dtype_name, es, prefix_len=0):
     """Least time of one causal call: 4 * D flops per visible (query, key)
-    pair and head (S (S + 1) / 2 pairs) over the type's peak, against q, k
-    and v read once and the output written once over HBM bandwidth."""
-    flops = 4 * B * H * D * S * (S + 1) // 2
+    pair and head (query i sees max(i + 1, prefix_len) keys) over the
+    type's peak, against q, k and v read once and the output written once
+    over HBM bandwidth."""
+    pairs = sum(max(i + 1, min(prefix_len, S)) for i in range(S))
+    flops = 4 * B * H * D * pairs
     nbytes = es * B * S * D * (2 * H + 2 * KH)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -511,32 +558,60 @@ def phase_flash(torch):
             assert err <= FLASH_ATOL[dtype_name], (dtype_name, B, Sq, Sk, H,
                                                    KH, D, causal, prefix, err)
             worst[dtype_name] = max(worst[dtype_name], err)
-    emit("check", kernel="flash_attention", cases=len(FLASH_CASES),
-         max_abs_err=worst, atol=FLASH_ATOL)
+    worst256 = {}
+    for dtype_name in ("float32", "bfloat16"):
+        worst256[dtype_name] = 0.0
+        for B, Sq, Sk, H, KH, D, causal, prefix in FLASH_256_CASES:
+            args = inputs(B, Sq, Sk, H, KH, D, getattr(torch, dtype_name))
+            got = flash_attention(*args, causal=causal, prefix_len=prefix)
+            want = flash_attention_ref(*args, causal=causal,
+                                       prefix_len=prefix)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), (B, Sq, Sk, H, KH, D)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype_name], (dtype_name, B, Sq, Sk, H, KH,
+                                             D, causal, prefix, err)
+            worst256[dtype_name] = max(worst256[dtype_name], err)
+            worst[dtype_name] = max(worst[dtype_name], err)
+    emit("check", kernel="flash_attention",
+         cases=len(FLASH_CASES) + len(FLASH_256_CASES), max_abs_err=worst,
+         atol=FLASH_ATOL, head_dim_256={"cases": len(FLASH_256_CASES),
+                                        "max_abs_err": worst256,
+                                        "atol": ATOL})
 
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
     rows = []
-    for label, B, S, H, KH, D in FLASH_TIMED:
+    for label, B, S, H, KH, D, prefix in FLASH_TIMED:
         q, k, v = inputs(B, S, S, H, KH, D, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        got = flash_attention(q, k, v, causal=True)
-        want = flash_attention_ref(q, k, v, causal=True)
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        kw = dict(causal=True, prefix_len=prefix)
+        if prefix:   # SDPA takes the prefix-causal mask as a boolean tensor
+            pos = torch.arange(S, device="cuda")
+            lib_kw = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                          | (pos[None, :] < prefix))
+        else:
+            lib_kw = dict(is_causal=True)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **lib_kw)
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.transpose(1, 2).float() - want.float()).abs().max()
         assert err <= FLASH_ATOL["bfloat16"], (label, err)
         assert lib_err.item() <= FLASH_ATOL["bfloat16"], (label, lib_err)
-        bound, by = flash_bound(B, S, H, KH, D, "bfloat16", q.element_size())
+        bound, by = flash_bound(B, S, H, KH, D, "bfloat16", q.element_size(),
+                                prefix)
         rows.append(dict(
-            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D}",
+            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D}"
+            + (f" prefix_len={prefix}" if prefix else ""),
             max_abs_err=err,
-            ms=cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+            ms=cuda_ms(torch, lambda: flash_attention(q, k, v, **kw),
                        flush=flush),
-            plain_ms=cuda_ms(torch, lambda: flash_attention_ref(
-                q, k, v, causal=True), flush=flush, iters=10),
+            plain_ms=cuda_ms(torch, lambda: flash_attention_ref(q, k, v,
+                                                                **kw),
+                             flush=flush, iters=10),
             library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush=flush),
+                qt, kt, vt, enable_gqa=True, **lib_kw), flush=flush),
             bound_ms=bound, bound_by=by))
         del q, k, v, qt, kt, vt, got, want, lib
     del flush
@@ -991,14 +1066,272 @@ def phase_cswitch(torch, dparams):
          launches=counts)
 
 
+
+# ---------------------------------------------------------------------------
+# phases 10-13: the MoE and VLM decoders
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, counts):
-    def entry(name, src, replaces, rows, err, launches):
+class DropCounter:
+    """Counts the (token, expert) slots ``apply_moe`` drops, by the kind of
+    the call: ``install`` swaps ``models.moe.apply_moe`` for a wrapper that
+    routes the call's input again (``moe.route``, the same function) and
+    adds its dropped slots, on the device, to the kind the backend's wrapped
+    entry points set: ``decode`` (the AR step), ``verify`` (the target's
+    pass of a speculative step) or ``prefill chunk`` (prefill and chunk
+    appends, with any decode rows batched beside them).  Padded batch rows
+    are routed too, as the reference routes them, and count."""
+
+    def __init__(self, torch, backend):
+        from repro_torch.models import moe
+        self.moe, self.kind, self.stats = moe, None, {}
+        self.orig = moe.apply_moe
+        dev = backend.device
+
+        def counted(cfg, p, x, *, capacity_factor=None):
+            G = moe.groups_for(cfg, x.shape[0] * x.shape[1])
+            cf = (capacity_factor if capacity_factor is not None
+                  else cfg.moe_capacity_factor)
+            r = moe.route(cfg, p["router"], x.reshape(G, -1, x.shape[-1]), cf)
+            st = self.stats.setdefault(self.kind, {
+                "calls": 0, "slots": 0, "capacity": set(),
+                "dropped": torch.zeros((), dtype=torch.long, device=dev)})
+            st["calls"] += 1
+            st["slots"] += r.position.numel()
+            st["capacity"].add(r.capacity)
+            st["dropped"] += (~r.kept).sum()
+            return self.orig(cfg, p, x, capacity_factor=capacity_factor)
+        self.counted = counted
+
+        def tagged(kind, fn):
+            def run(*a, **kw):
+                self.kind = kind
+                return fn(*a, **kw)
+            return run
+        backend._ar = tagged("decode", backend._ar)
+        backend._spec = tagged("verify", backend._spec)
+        backend._extend_target = tagged("prefill chunk",
+                                        backend._extend_target)
+
+    def __enter__(self):
+        self.moe.apply_moe = self.counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.apply_moe = self.orig
+
+    def summary(self):
+        return {k: {"calls": v["calls"], "slots": v["slots"],
+                    "capacity": sorted(v["capacity"]),
+                    "dropped": int(v["dropped"])}
+                for k, v in self.stats.items()}
+
+
+def serve_pair(torch, arch, *, count_drops=False):
+    """``phase_serve`` for another pair: the full-width bf16 pair of
+    ``arch`` through ``build_real_engine`` with the serve's traffic, after a
+    warm-up run on other prompts.  With ``count_drops`` the same requests
+    are served once more on a fresh engine under a :class:`DropCounter`
+    (kept out of the timed run: its routing adds work)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_real_engine
+    cfg, dcfg = configs.get_config(arch), configs.get_draft_config(arch)
+    kw = dict(device="cuda", dtype="bfloat16", policy="nightjar",
+              prefix_caching=True, chunk_tokens=16, seed=0)
+    # earlier phases' engines hold their weights in reference cycles: free
+    # them, so the peak below is this pair's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    warm = build_real_engine(cfg, dcfg, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warm.run(requests(cfg.vocab_size, n=4, seed=1), max_steps=5000)
+    params = (warm.backend.tparams, warm.backend.dparams)
+    del warm
+    engine = build_real_engine(cfg, dcfg, params=params, **kw)
+    reqs = requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = engine.run(reqs, max_steps=5000, record_timeline=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    outs = streams(engine, reqs)
+    check_run(m, reqs, outs, cfg.vocab_size)
+    assert m.spec.get("spec_steps", 0) >= 1, m.spec
+    assert counts["paged_attention"] > 0 and counts["migrate_blocks"] > 0, \
+        counts
+    assert counts["flash_attention"] == 0, counts
+    fields = dict(
+        model=f"{arch} full width and depth, bf16", wall_s=wall,
+        target_layers=cfg.num_layers, draft_layers=dcfg.num_layers,
+        setup_s=setup_s, output_tokens=m.total_tokens,
+        tokens_per_s=m.total_tokens / wall,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        pool_blocks=engine.backend.bm.total_blocks,
+        requests_finished=len(m.requests), steps=m.spec.get("steps", 0),
+        spec_steps=m.spec["spec_steps"],
+        prefix_forks=m.prefix.get("forks", 0), launches=counts,
+        step_ms={g: 1e3 * v["latency_s"] / v["steps"]
+                 for g, v in m.spec["per_gamma"].items()})
+    del engine
+    if count_drops:
+        engine = build_real_engine(cfg, dcfg, params=params, **kw)
+        with DropCounter(torch, engine.backend) as dc:
+            engine.run(requests(cfg.vocab_size), max_steps=5000)
+        fields["dropped_slots"] = dc.summary()
+        del engine
+    del params
+    torch.cuda.empty_cache()
+    return counts, fields
+
+
+def phase_moe_serve(torch):
+    counts, fields = serve_pair(torch, GRANITE, count_drops=True)
+    emit("moe_serve", **fields)
+    return counts
+
+
+def phase_vlm_serve(torch):
+    """paligemma's pair serves text, as the reference's real tier does."""
+    counts, fields = serve_pair(torch, PALIGEMMA)
+    emit("vlm_serve", **fields)
+    return counts
+
+
+def phase_moe_lossless(torch):
+    """tests/test_spec_engine.py's losslessness on the card: granite at
+    full width and 4 layers, fp32 with TF32 off, capacity factor 8.0 as the
+    reference's reduced() sets it, so no call drops a slot (counted).  The
+    greedy streams under AR, fixed-2, Nightjar and Nightjar with the target
+    as its own draft (which accepts) are equal token for token."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_real_engine
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_config(GRANITE).replace(
+        num_layers=4, dtype="float32", moe_capacity_factor=8.0)
+    dcfg = configs.get_draft_config(GRANITE).replace(dtype="float32")
+    params = (registry.get_model(cfg).init(device="cuda", seed=1),
+              registry.get_model(dcfg).init(device="cuda", seed=2))
+    runs = (("ar", "ar", dcfg, params), ("fixed-2", "fixed-2", dcfg, params),
+            ("nightjar", "nightjar", dcfg, params),
+            ("nightjar, draft = target", "nightjar", cfg,
+             (params[0], params[0])))
+    out, accepted, drops = {}, {}, {}
+    for name, policy, draft_cfg, pair in runs:
+        engine = build_real_engine(cfg, draft_cfg, device="cuda",
+                                   policy=policy, prefix_caching=True,
+                                   chunk_tokens=16, seed=0, params=pair)
+        reqs = requests(cfg.vocab_size)
+        reset_counts()
+        with DropCounter(torch, engine.backend) as dc:
+            m = engine.run(reqs, max_steps=5000, record_timeline=True)
+        counts = read_counts()
+        out[name] = streams(engine, reqs)
+        check_run(m, reqs, out[name], cfg.vocab_size)
+        accepted[name] = sum(g["accepted"] for gam, g in
+                             m.spec.get("per_gamma", {}).items() if gam > 0)
+        drops[name] = dc.summary()
+        assert all(v["dropped"] == 0 for v in drops[name].values()), drops
+        if policy != "ar":
+            assert m.spec.get("spec_steps", 0) >= 1, m.spec
+        emit("moe_lossless_run", run=name, spec=m.spec_summary(),
+             accepted_tokens=accepted[name], launches=counts,
+             dropped_slots=drops[name])
+        del engine
+    assert accepted["nightjar, draft = target"] > 0, accepted
+    for name in out:
+        assert out[name] == out["ar"], f"fp32 {name} stream != AR stream"
+    emit("moe_lossless", model=f"{GRANITE} full width, {cfg.num_layers} "
+         f"target + {dcfg.num_layers} draft layers, fp32, TF32 off, "
+         f"capacity factor 8.0", requests=len(out["ar"]), equal=True,
+         runs=list(out), accepted_tokens=accepted)
+    del params
+    torch.cuda.empty_cache()
+
+
+def vlm_prefix_check(torch, cfg, params):
+    """B = 2: ``prefill`` of 256 seeded image rows + 16 text tokens, then 8
+    ``decode_step``s; each step's logits against ``forward`` over the whole
+    sequence.  Returns (max |difference|, max |forward logit|, prefill ms,
+    flash launches of the prefill)."""
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import unembed
+    api = registry.get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    N, S, steps, B = cfg.num_image_tokens, 16, 8, 2
+    img = torch.randn((B, N, cfg.d_model), generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                        device="cuda")
+    api.prefill(params, {"tokens": tok[:, :S], "image_emb": img}, N + S)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lg, cache = api.prefill(params, {"tokens": tok[:, :S],
+                                     "image_emb": img}, N + S + steps)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    flash = read_counts()["flash_attention"]
+    assert flash == cfg.num_layers, flash
+    got = [lg[:, 0]]
+    for t in range(S, S + steps - 1):
+        lg, cache = api.decode_step(params, cache, tok[:, t:t + 1])
+        got.append(lg[:, 0])
+    got = torch.stack(got, 1)
+    h = api.forward(params, {"tokens": tok[:, :S + steps - 1],
+                             "image_emb": img})
+    want = unembed(cfg, params, h[:, N + S - 1:])
+    assert got.shape == want.shape == (B, steps, cfg.vocab_size)
+    assert torch.isfinite(got).all()
+    return ((got - want).abs().max().item(), want.abs().max().item(),
+            prefill_ms, flash)
+
+
+def phase_vlm_prefix(torch):
+    """paligemma's image-prefix path: full width and depth in bf16 (the
+    difference held within 5 % of the largest logit: 18 layers of bf16
+    rounding taken in another order), and 4 layers in fp32 with TF32 off
+    (1e-4, as tests/test_decode_equivalence.py holds it)."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = configs.get_config(PALIGEMMA)
+    out = {}
+    for name, cfg in (("bf16", base.replace(dtype="bfloat16")),
+                      ("fp32", base.replace(num_layers=4,
+                                            dtype="float32"))):
+        params = registry.get_model(cfg).init(device="cuda", seed=4)
+        err, scale, ms, flash = vlm_prefix_check(torch, cfg, params)
+        limit = 0.05 * scale if name == "bf16" else 1e-4
+        assert err <= limit, (name, err, limit)
+        out[name] = {"layers": cfg.num_layers, "max_abs_err": err,
+                     "limit": limit, "max_abs_logit": scale,
+                     "prefill_ms": ms, "flash_launches_head_dim_256": flash}
+        del params
+        torch.cuda.empty_cache()
+    emit("vlm_prefix", model=f"{PALIGEMMA}, B=2, 256 image rows + 16 text "
+         f"tokens, then 8 decode steps", **out)
+    return out["bf16"]["flash_launches_head_dim_256"]
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, by_path):
+    """The contract's kernels line.  ``by_path`` holds each main path's
+    launches (counts set to 0 just before the path, read just after);
+    ``launches`` is their sum."""
+    def entry(name, src, replaces, rows, err):
         top = rows[0]
+        paths = {p: c[name] for p, c in by_path.items() if c.get(name)}
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(paths.values()),
+                "launches_by_path": paths,
                 "max_abs_err": err, "ms": top["ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"], "library_ms": top["library_ms"],
@@ -1007,15 +1340,15 @@ def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, counts):
         entry("paged_attention",
               "src/repro_torch/kernels/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:117", attn_rows,
-              err["paged_attention"], counts["paged_attention"]),
+              err["paged_attention"]),
         entry("migrate_blocks",
               "src/repro_torch/kernels/csrc/block_migration.cu",
               "src/repro/kernels/block_migration.py:48", mig_rows,
-              err["migrate_blocks"], counts["migrate_blocks"]),
+              err["migrate_blocks"]),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:87", flash_rows,
-              flash_err, counts["flash_attention"]),
+              flash_err),
     ], **CARD}
 
 
@@ -1031,16 +1364,19 @@ def main() -> int:
     phase_build()
     err, attn_rows, mig_rows = phase_kernels(torch)
     flash_err, flash_rows = phase_flash(torch)
-    counts, full_params = phase_serve(torch)
+    by_path = {}
+    by_path["serve"], full_params = phase_serve(torch)
     elastic = phase_elastic_full(torch, full_params)
     assert elastic["migrate_blocks"] == 1, elastic     # one launch per set
     # the dense path's launches: flash_attention runs there, not on the
     # paged path
-    counts["flash_attention"] = phase_dense_serve(torch, full_params)[
-        "flash_attention"]
+    by_path["dense_serve"] = phase_dense_serve(torch, full_params)
     phase_cswitch(torch, full_params[1])
     del full_params
     torch.cuda.empty_cache()
+    by_path["moe_serve"] = phase_moe_serve(torch)
+    by_path["vlm_serve"] = phase_vlm_serve(torch)
+    by_path["vlm_prefix"] = {"flash_attention": phase_vlm_prefix(torch)}
 
     from repro_torch.models import registry
     cfg, dcfg = fp32_cut()
@@ -1049,9 +1385,12 @@ def main() -> int:
     phase_lossless(torch, params)
     phase_elastic(params)
     phase_dense_lossless(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_moe_lossless(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
-                                 flash_rows, counts)))
+                                 flash_rows, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,17 +1,22 @@
-"""Config registry of the port: the dense architectures it serves, their draft
+"""Config registry of the port: the architectures it serves, their draft
 pairings, and reduced configs for CPU tests.
 
-Data only — a copy of the reference registry, limited to the dense family
-that the paged decoder covers.
+Data only — a copy of the reference registry, limited to the dense, MoE and
+VLM families that the port's transformer covers.
 """
 from __future__ import annotations
 
 from .base import ModelConfig
-from . import deepseek_7b, paper_7b, qwen3_14b
+from . import (deepseek_7b, gemma_7b, granite_moe_1b, grok1_314b,
+               paligemma_3b, paper_7b, qwen3_14b)
 
 _MODULES = {
     "deepseek-7b": deepseek_7b,
+    "gemma-7b": gemma_7b,
     "qwen3-14b": qwen3_14b,
+    "grok-1-314b": grok1_314b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "paligemma-3b": paligemma_3b,
     "paper-7b": paper_7b,
 }
 
@@ -47,6 +52,8 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     if cfg.d_ff:
         kw["d_ff"] = 256 if not cfg.moe_num_experts else 64
     if cfg.moe_num_experts:
+        # cf=8: no capacity drops at smoke scale, so prefill + decode equals
+        # the full forward (drops depend on the batch's composition)
         kw.update(moe_num_experts=min(cfg.moe_num_experts, 4),
                   moe_top_k=min(cfg.moe_top_k, 2),
                   moe_capacity_factor=8.0)

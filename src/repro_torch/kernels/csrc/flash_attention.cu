@@ -33,8 +33,15 @@
 //     that `ldmatrix` reads are free of bank conflicts; they arrive by
 //     16-byte `cp.async` (zero-filled past Sq / Sk) into a two-stage ring,
 //     so the loads of key tile t + 1 overlap the products of tile t, with
-//     one barrier per tile.  Q is loaded once and kept in registers as
-//     A fragments;
+//     one barrier per tile.  Up to D = 128, Q is loaded once and kept in
+//     registers as A fragments;
+//   * D = 256: the O accumulator of 16 rows x 256 columns alone takes 128
+//     registers a lane, Q's 16 k-steps 64 more and S 32: past the 255 a
+//     thread may hold (ptxas spilled ~300 bytes a thread when D was simply
+//     raised).  So the block has 8 warps: the two warps of a 16-row tile
+//     each own half of O's columns (64 registers) and both compute the
+//     tile's S (the Q K^T product is done twice, 1.5x the flops), and each
+//     k-step reads its Q fragment from the staged tile with `ldmatrix`;
 //   * S = Q K^T accumulates in fp32 registers (K rows through `ldmatrix`
 //     are the col-major B operand as stored); the online softmax runs on
 //     those registers (row max over the 4 lanes of a quad, two shuffles);
@@ -53,6 +60,8 @@
 // give.  Grid (B * H, ceil(Sq / 64)), 256 threads on a 16 x 16 register
 // tile per 64 x 64 block of scores, K/V staged in shared memory; a row's
 // 64 scores live in one half-warp, so its max and sum are four shuffles.
+// At D = 256 its tiles take 218,368 B of shared memory (under the 227 KB
+// opt-in): one block per SM.
 //
 // Both skip causal tiles past the diagonal and past the prefix.  Launches on
 // the given stream, does not synchronise and allocates nothing; returns
@@ -273,6 +282,12 @@ struct Tile {
   static constexpr int kSmemBytes = 5 * kElems * 2;
 };
 
+// warps sharing a 16-row tile, each owning D / kColSplit columns of O
+template <int D>
+constexpr int kColSplit = D > 128 ? 2 : 1;
+template <int D>
+constexpr int kBlockThreads = kThreads * kColSplit<D>;
+
 using kern::cp_async16;
 using kern::cp_async_commit;
 using kern::cp_async_wait;
@@ -319,8 +334,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           int n_rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
 #pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
+  for (int it = 0; it < 64 * kChunks / kBlockThreads<D>; ++it) {
+    const int i = threadIdx.x + it * kBlockThreads<D>;
     const int r = i / kChunks;
     const int c = i % kChunks;
     const int row = row0 + r;
@@ -332,7 +347,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlockThreads<D>)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -342,7 +357,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int E = Tile<D>::kElems;
   constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
   constexpr int NT = kBK / 8;      // 8-key n-tiles of S
-  constexpr int DT = D / 8;        // 8-column n-tiles of O
+  constexpr int CS = kColSplit<D>;
+  constexpr int DT = D / 8 / CS;   // 8-column n-tiles of the warp's O
+  constexpr bool kQInRegs = D <= 128;  // else Q's fragments per k-step
   extern __shared__ __align__(128) __nv_bfloat16 sm[];
   __nv_bfloat16* qs = sm;               // [64][S], later the output tile
   __nv_bfloat16* ks = sm + E;           // [2][64][S]
@@ -352,7 +369,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.x % H;
   const int kh = h / (H / KH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest tiles first
-  const int warp = threadIdx.x / 32;
+  const int warp = (threadIdx.x / 32) % kWarps;  // the warp's row tile
+  const int col0 = threadIdx.x / kThreads * (D / CS);  // its O columns
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;   // row of the quad in an mma fragment
   const int t4 = lane % 4;  // column pair of the quad
@@ -372,7 +390,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   load_tile<D>(vs, v_head, KH * D, 0, Sk);
   cp_async_commit();
 
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[kQInRegs ? KSTEPS : 1][4];
   float acc[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
@@ -386,9 +404,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    if (t == 0) {
+    if (kQInRegs && t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
+      for (int kk = 0; kk < (kQInRegs ? KSTEPS : 0); ++kk)
         ldmatrix_x4(qf[kk], qs + (warp * 16 + lane % 16) * S + kk * 16 +
                                 (lane / 16) * 8);
     }
@@ -410,13 +428,21 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, qs + (warp * 16 + lane % 16) * S + kk * 16 +
+                            (lane / 16) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kb[4];  // b0, b1 of n-tiles 2 np and 2 np + 1
         ldmatrix_x4(kb, kt + (np * 16 + lane % 8 + 8 * (lane / 16)) * S +
                             kk * 16 + 8 * ((lane / 8) % 2));
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -478,15 +504,18 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vb[4];  // b0, b1 of column tiles 2 dp and 2 dp + 1
         ldmatrix_x4_trans(vb, vt + (kk * 16 + lane % 8 + 8 * ((lane / 8) % 2))
-                                       * S + dp * 16 + 8 * (lane / 16));
+                                       * S + col0 + dp * 16 +
+                                  8 * (lane / 16));
         mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
         mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
       }
     }
   }
 
-  // epilogue: normalise, stage the warp's 16 rows in its own rows of the
-  // Q tile (only this warp read them), then 16-byte stores
+  // epilogue: normalise, stage the warp's 16 rows (its columns) in its
+  // own rows of the Q tile, then 16-byte stores.  Only the warps of the
+  // row tile read those rows; with two, the barrier keeps one from
+  // writing them while the other still reads its Q fragments.
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -495,20 +524,22 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     inv[r] = 1.f / fmaxf(lsum, 1e-30f);
   }
+  if constexpr (CS > 1) __syncthreads();
   __nv_bfloat16* os = qs + warp * 16 * S;
 #pragma unroll
   for (int n = 0; n < DT; ++n)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(os + (g + 8 * r) * S + 8 * n + 2 * t4) =
+      *reinterpret_cast<uint32_t*>(os + (g + 8 * r) * S + col0 + 8 * n +
+                                   2 * t4) =
           pack_bf16(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
   __syncwarp();
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = D / 8 / CS;  // the warp's 16-byte chunks a row
 #pragma unroll
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int i = lane + it * 32;
     const int r = i / kChunks;
-    const int c = i % kChunks;
+    const int c = col0 / 8 + i % kChunks;
     const int row = q0 + warp * 16 + r;
     if (row < Sq)
       *reinterpret_cast<uint4*>(
@@ -525,7 +556,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const cudaError_t err = kern::allow_smem<flash_tc_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_tc_kernel<D><<<grid, kBlockThreads<D>, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -569,6 +600,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                         prefix_len, scale, s);
     case 128:
       return launch<128>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
+                         prefix_len, scale, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
                          prefix_len, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

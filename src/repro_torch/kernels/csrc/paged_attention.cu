@@ -51,6 +51,12 @@
 // No tensor cores or TMA yet: verify and chunk appends (T*G >= 16 rows) are
 // where they would pay.
 //
+// head_dim 256 (paligemma's target, gemma-7b): each lane owns 8 output
+// columns; the ring takes 111,872 B of shared memory in bf16 (two blocks
+// per SM) and 218,368 B in fp32 (one).  With one KV head (MQA, G = 8) a
+// decode step fills 8 of the block's 16 rows and verify at gamma = 3 two
+// row tiles.
+//
 // Launches on the given stream, does not synchronise and allocates nothing
 // (the wrapper allocates the split scratch); returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -417,6 +423,7 @@ int dispatch(int D, int bs, const void* q, const void* k, const void* v,
   PA_CASE(32, 4) PA_CASE(32, 8) PA_CASE(32, 16)
   PA_CASE(64, 4) PA_CASE(64, 8) PA_CASE(64, 16)
   PA_CASE(128, 4) PA_CASE(128, 8) PA_CASE(128, 16)
+  PA_CASE(256, 4) PA_CASE(256, 8) PA_CASE(256, 16)
 #undef PA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

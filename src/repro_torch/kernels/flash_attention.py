@@ -16,7 +16,7 @@ from . import _build
 from .ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):

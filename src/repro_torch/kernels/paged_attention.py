@@ -22,7 +22,7 @@ from . import _build
 from .ref import paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_SIZES = (4, 8, 16)
 TILE = 32             # key positions per tile (csrc kTile)
 ROWS_PER_BLOCK = 16   # query rows per block (csrc kRows)

@@ -1,18 +1,22 @@
 """Where a served step's time goes, on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch ARCH]
 
-Builds the full-width bf16 paper-7b pair as ``chip_smoke.py`` serves it,
+Builds the full-width bf16 pair of ``--arch`` (default paper-7b; also
+granite-moe-1b-a400m, paligemma-3b, ...) as ``chip_smoke.py`` serves it,
 once on the paged path (``build_real_engine``) and once on the dense-cache
 path (``build_dense_engine``, same weights).  For each it warms up on four
 requests, then serves eight more under ``torch.profiler`` and prints one
 JSON line: the wall time (profiler overhead included), the device's busy
 time (the union of its kernel intervals) and idle share, the number of
-device kernels, the device time of the port's own CUDA kernels, and the
-operators that took the most device and host time.
+device kernels, the device time of the port's own CUDA kernels and of
+``aten::bmm`` (on the paged path only a MoE layer's expert products call
+it; on the dense path the plain decode attention's einsums do too), and
+the operators that took the most device and host time.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -45,7 +49,7 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_run(engine, path, vocab):
+def profile_run(engine, path, arch, vocab):
     """Warm ``engine`` up, then serve eight requests under the profiler;
     returns the JSON-ready breakdown."""
     engine.run(tiny_requests(4, prompt_len=16, output_len=16, template_len=8,
@@ -74,28 +78,35 @@ def profile_run(engine, path, vocab):
     ours = {name: sum(e.time_range.elapsed_us() for e in kernels
                       if name in e.name) / 1e3
             for name in OWN_KERNELS}
+    bmm = [a for a in avg if a.key == "aten::bmm"]
     return {
-        "path": path, "device": torch.cuda.get_device_name(0),
+        "path": path, "arch": arch, "device": torch.cuda.get_device_name(0),
         "wall_s": wall, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall,
         "steps": m.spec.get("steps", 0), "output_tokens": m.total_tokens,
         "device_kernels": len(kernels), "own_kernels_device_ms": ours,
+        "bmm_device_ms": sum(a.self_device_time_total
+                             for a in bmm) / 1e3,
         "top_device": top("self_device_time_total"),
         "top_host": top("self_cpu_time_total")}
 
 
 def main():
-    cfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
-    dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-7b",
+                    choices=configs.list_archs())
+    arch = ap.parse_args().arch
+    cfg = configs.get_config(arch).replace(dtype="bfloat16")
+    dcfg = configs.get_draft_config(arch).replace(dtype="bfloat16")
     engine = build_real_engine(cfg, dcfg, device="cuda", policy="nightjar",
                                prefix_caching=True, chunk_tokens=16, seed=0)
-    print(json.dumps(profile_run(engine, "paged", cfg.vocab_size)),
+    print(json.dumps(profile_run(engine, "paged", arch, cfg.vocab_size)),
           flush=True)
     params = (engine.backend.tparams, engine.backend.dparams)
     del engine
     engine = build_dense_engine(cfg, dcfg, device="cuda", policy="nightjar",
                                 seed=0, params=params)
-    print(json.dumps(profile_run(engine, "dense", cfg.vocab_size)))
+    print(json.dumps(profile_run(engine, "dense", arch, cfg.vocab_size)))
 
 
 if __name__ == "__main__":

@@ -4,10 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --tier real --device cpu \
       --dataset templated --chunk-tokens 8 --prefix-caching on
 
-``main`` serves ``configs.reduced`` models, as the reference's real tier
-does; :func:`build_real_engine` and :func:`build_dense_engine` (the
-dense-cache tier) take any config pair (``chip_smoke.py`` serves the
-full-width paper-7b pair through both).
+``main`` serves ``configs.reduced`` models of any ``--arch`` (the
+granite-moe-1b-a400m and paligemma-3b pairs included), as the reference's
+real tier does; :func:`build_real_engine` and :func:`build_dense_engine`
+(the dense-cache tier) take any config pair (``chip_smoke.py`` serves the
+full-width paper-7b pair through both, and the full-width granite and
+paligemma pairs through the first).
 """
 from __future__ import annotations
 

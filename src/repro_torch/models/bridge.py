@@ -1,8 +1,9 @@
 """Carry reference weights into the port.
 
-The reference's parameter tree (stacked layers, einsum layouts) arrives as
-nested dicts of numpy arrays; the port keeps the same names and layouts, so
-the bridge is a rename and dtype cast, never a reshape.
+The reference's parameter tree (stacked layers, einsum layouts, a MoE
+layer's ``moe`` tree, a VLM's ``image_proj``) arrives as nested dicts of
+numpy arrays; the port keeps the same names and layouts, so the bridge is a
+rename and dtype cast, never a reshape.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ from .transformer import param_specs
 
 def params_from_numpy(cfg, tree, *, device="cuda"):
     """Nested dicts of numpy arrays -> the port's parameter tree on
-    ``device``, in the config's dtype.  Raises on a missing, extra or
-    misshapen leaf."""
+    ``device``, each leaf in its own dtype (the config's, or fp32 for the
+    MoE router).  Raises on a missing, extra or misshapen leaf."""
     dev = _device.resolve(device)
 
     def conv(spec, node, path):

@@ -9,6 +9,7 @@ MLP ``wg/wu (d, f)``, ``wd (f, d)``, norm ``scale (d,)``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,15 @@ from ..kernels.ref import NEG_INF
 # ---------------------------------------------------------------------------
 # Initialisation (same distributions as the reference; not the same bits)
 # ---------------------------------------------------------------------------
+
+
+class Spec(NamedTuple):
+    """One parameter: its shape, initialiser, fan-in and dtype (None: the
+    model's)."""
+    shape: Tuple[int, ...]
+    init: str          # dense | embed | ones | zeros
+    fan_in: int = 0
+    dtype: Optional[str] = None
 
 
 def dense_init_(t: torch.Tensor, fan_in: int, gen: torch.Generator):

@@ -1,9 +1,11 @@
-"""Model API of the port: the dense family's full-sequence, dense-cache and
-paged serving paths.
+"""Model API of the port: the full-sequence, dense-cache and paged serving
+paths of the dense, MoE and VLM families (one transformer serves all three,
+as in the reference's ``registry._FAMILY_MODULES``).
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` with
   init(device=..., seed=...) -> params
   forward(params, batch) -> final hidden states (B, S, d)
+    (batch["image_emb"] (B, N, d) prefixes a VLM's text)
   init_cache(batch_size, max_len, device=...) -> cache
   prefill(params, batch, max_len) -> (last_logits, cache)
   decode_step(params, cache, tokens) -> (logits, cache)
@@ -38,12 +40,15 @@ class ModelAPI:
         return self.decode_step_paged is not None
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if (cfg.family != "dense" or cfg.moe_num_experts
-            or cfg.pos_embedding == "learned"):
+    if cfg.family not in FAMILIES or cfg.pos_embedding == "learned":
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense decoders with RoPE or no "
-            f"position embedding (family {cfg.family!r} not ported)")
+            f"{cfg.name}: the port serves the {', '.join(FAMILIES)} "
+            f"families with RoPE or no position embedding (family "
+            f"{cfg.family!r} not ported)")
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(transformer.init_params, cfg),
@@ -57,18 +62,19 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     )
 
 
-def _leaves(tree):
+def leaves(tree):
+    """The leaves of a nested dict, in order."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from leaves(v)
     else:
         yield tree
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameter count from the port's own parameter shapes (meta tensors,
-    no storage)."""
-    return sum(math.prod(t.shape) for t in _leaves(
+    no storage); a MoE counts every expert."""
+    return sum(math.prod(t.shape) for t in leaves(
         transformer.param_specs(cfg)))
 
 

@@ -1,7 +1,12 @@
-"""Dense decoder-only transformer.
+"""Decoder-only transformer covering the dense, MoE and VLM families.
 
 Layer parameters are stacked on a leading ``L`` axis, as the reference's
-``scan_layers`` layout.  Two serving paths:
+``scan_layers`` layout.  A MoE layer holds ``"moe"`` (router and stacked
+experts, ``models/moe.py``) where a dense one holds ``"mlp"``; a VLM takes
+``batch["image_emb"]`` (precomputed patch embeddings, projected by
+``image_proj``) as a bidirectional prefix of ``num_image_tokens`` positions
+in ``forward`` and ``prefill``, and serves text through the cache paths.
+Two serving paths:
 
 * paged: pools ``(L, NB+1, bs, KH, hd)`` with the write-off ("trash") block
   last.  One function, :func:`decode_step_paged`, serves every
@@ -16,23 +21,18 @@ Layer parameters are stacked on a leading ``L`` axis, as the reference's
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict
 
 import torch
 
 from .. import device as _device
 from ..kernels.paged_attention import paged_attention
-from .common import (apply_mlp, apply_norm, attn_output, blockwise_attention,
-                     cache_write, decode_attention, dense_init_, embed_init_,
-                     qkv_project, rope_angles)
+from .common import (Spec, apply_mlp, apply_norm, attn_output,
+                     blockwise_attention, cache_write, decode_attention,
+                     dense_init_, embed_init_, qkv_project, rope_angles)
+from . import moe
 
 Params = Dict[str, Any]
-
-
-class _Spec(NamedTuple):
-    shape: Tuple[int, ...]
-    init: str          # dense | embed | ones | zeros
-    fan_in: int = 0
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -42,9 +42,9 @@ def _dtype(cfg) -> torch.dtype:
 def _norm_layout(cfg, lead=()):
     d = cfg.d_model
     if cfg.norm_type == "layernorm":
-        return {"scale": _Spec(lead + (d,), "ones"),
-                "bias": _Spec(lead + (d,), "zeros")}
-    return {"scale": _Spec(lead + (d,), "zeros" if cfg.rmsnorm_offset
+        return {"scale": Spec(lead + (d,), "ones"),
+                "bias": Spec(lead + (d,), "zeros")}
+    return {"scale": Spec(lead + (d,), "zeros" if cfg.rmsnorm_offset
                            else "ones")}
 
 
@@ -54,60 +54,71 @@ def param_layout(cfg) -> Dict[str, Any]:
                           cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers)
     ll = (L,)
     attn = {
-        "wq": _Spec(ll + (d, H, hd), "dense", d),
-        "wk": _Spec(ll + (d, KH, hd), "dense", d),
-        "wv": _Spec(ll + (d, KH, hd), "dense", d),
-        "wo": _Spec(ll + (H, hd, d), "dense", H * hd),
+        "wq": Spec(ll + (d, H, hd), "dense", d),
+        "wk": Spec(ll + (d, KH, hd), "dense", d),
+        "wv": Spec(ll + (d, KH, hd), "dense", d),
+        "wo": Spec(ll + (H, hd, d), "dense", H * hd),
     }
     if cfg.qkv_bias:
-        attn.update(bq=_Spec(ll + (H, hd), "zeros"),
-                    bk=_Spec(ll + (KH, hd), "zeros"),
-                    bv=_Spec(ll + (KH, hd), "zeros"))
+        attn.update(bq=Spec(ll + (H, hd), "zeros"),
+                    bk=Spec(ll + (KH, hd), "zeros"),
+                    bv=Spec(ll + (KH, hd), "zeros"))
     if cfg.qk_norm:
-        attn.update(q_norm=_Spec(ll + (hd,), "ones"),
-                    k_norm=_Spec(ll + (hd,), "ones"))
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        mlp = {"wg": _Spec(ll + (d, f), "dense", d),
-               "wu": _Spec(ll + (d, f), "dense", d),
-               "wd": _Spec(ll + (f, d), "dense", f)}
+        attn.update(q_norm=Spec(ll + (hd,), "ones"),
+                    k_norm=Spec(ll + (hd,), "ones"))
+    if cfg.moe_num_experts:
+        mlp = moe.moe_layout(cfg, ll)
+    elif cfg.mlp_type in ("swiglu", "geglu"):
+        mlp = {"wg": Spec(ll + (d, f), "dense", d),
+               "wu": Spec(ll + (d, f), "dense", d),
+               "wd": Spec(ll + (f, d), "dense", f)}
     else:
-        mlp = {"w1": _Spec(ll + (d, f), "dense", d),
-               "b1": _Spec(ll + (f,), "zeros"),
-               "w2": _Spec(ll + (f, d), "dense", f),
-               "b2": _Spec(ll + (d,), "zeros")}
+        mlp = {"w1": Spec(ll + (d, f), "dense", d),
+               "b1": Spec(ll + (f,), "zeros"),
+               "w2": Spec(ll + (f, d), "dense", f),
+               "b2": Spec(ll + (d,), "zeros")}
     layout = {
-        "embed": _Spec((cfg.vocab_size, d), "embed"),
+        "embed": Spec((cfg.vocab_size, d), "embed"),
         "layers": {"attn": attn, "ln1": _norm_layout(cfg, ll),
-                   "ln2": _norm_layout(cfg, ll), "mlp": mlp},
+                   "ln2": _norm_layout(cfg, ll),
+                   "moe" if cfg.moe_num_experts else "mlp": mlp},
         "final_norm": _norm_layout(cfg),
     }
     if not cfg.tie_embeddings:
-        layout["lm_head"] = _Spec((cfg.vocab_size, d), "embed")
+        layout["lm_head"] = Spec((cfg.vocab_size, d), "embed")
+    if cfg.num_image_tokens:
+        # the stubbed modality frontend: one projection of the patch
+        # embeddings
+        layout["image_proj"] = Spec((d, d), "embed")
     return layout
 
 
 def _map_layout(fn, layout):
-    if isinstance(layout, _Spec):
+    if isinstance(layout, Spec):
         return fn(layout)
     return {k: _map_layout(fn, v) for k, v in layout.items()}
 
 
+def _leaf_dtype(cfg, s: Spec) -> torch.dtype:
+    return getattr(torch, s.dtype) if s.dtype else _dtype(cfg)
+
+
 def param_specs(cfg) -> Params:
     """The parameter tree as meta tensors: shapes and dtypes, no storage."""
-    dt = _dtype(cfg)
-    return _map_layout(lambda s: torch.empty(s.shape, dtype=dt,
-                                             device="meta"), param_layout(cfg))
+    return _map_layout(lambda s: torch.empty(
+        s.shape, dtype=_leaf_dtype(cfg, s), device="meta"), param_layout(cfg))
 
 
 def init_params(cfg, *, device="cuda", seed: int = 0) -> Params:
     """Seeded random weights on ``device``: the reference's distributions
-    (truncated-normal fan-in dense weights, N(0, 0.02) embeddings, unit
-    norms, zero qkv biases) drawn from a ``torch.Generator``."""
+    (truncated-normal fan-in dense weights, N(0, 0.02) embeddings and image
+    projection, unit norms, zero qkv biases, an fp32 router) drawn from a
+    ``torch.Generator``."""
     dev = _device.resolve(device)
-    dt = _dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def make(s: _Spec):
+    def make(s: Spec):
+        dt = _leaf_dtype(cfg, s)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dt, device=dev)
         if s.init == "zeros":
@@ -141,6 +152,17 @@ def embed_tokens(cfg, params, tokens):
     return h
 
 
+def embed_inputs(cfg, params, batch):
+    """batch["tokens"] (B, S_txt), with batch["image_emb"] (B, N, d) for a
+    VLM -> (B, N + S_txt, d): the projected image rows before the text.
+    ``embed_scale`` applies to the text tokens only."""
+    h = embed_tokens(cfg, params, batch["tokens"].long())
+    if cfg.num_image_tokens and "image_emb" in batch:
+        img = batch["image_emb"].to(h.dtype) @ params["image_proj"]
+        h = torch.cat([img, h], dim=1)
+    return h
+
+
 def unembed(cfg, params, h):
     """h (B, T, d) -> fp32 logits (B, T, V).  The product runs in the model
     dtype (a bf16 model rounds its logits to bf16 before the cast)."""
@@ -163,26 +185,53 @@ def _rope(cfg, positions):
 # ---------------------------------------------------------------------------
 
 
-def apply_layer_full(cfg, layer, h, rope):
+def _ffn(cfg, layer, x, capacity_factor=None):
+    """The block's MLP, or its MoE at ``capacity_factor`` (None: the
+    config's)."""
+    if cfg.moe_num_experts:
+        return moe.apply_moe(cfg, layer["moe"], x,
+                             capacity_factor=capacity_factor)[0]
+    return apply_mlp(cfg, layer["mlp"], x)
+
+
+def _decode_cf(cfg) -> float:
+    """The capacity factor of decode / verify / paged calls: at least 2, as
+    the reference's ``apply_layer_decode`` and ``apply_layer_decode_paged``
+    take it."""
+    return max(cfg.moe_capacity_factor, 2.0)
+
+
+def apply_layer_full(cfg, layer, h, rope, *, prefix_len: int = 0):
     """Full-sequence (prefill) pass through one block: h (B, S, d) ->
-    (h, k, v), with causal attention over the whole sequence."""
+    (h, k, v), with causal attention over the whole sequence and a
+    bidirectional prefix of ``prefix_len`` positions."""
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
-    o = blockwise_attention(q, k, v, causal=True)
+    o = blockwise_attention(q, k, v, causal=True, prefix_len=prefix_len)
     h = h + attn_output(layer["attn"], o)
     x = apply_norm(cfg, h, layer["ln2"])
-    return h + apply_mlp(cfg, layer["mlp"], x), k, v
+    return h + _ffn(cfg, layer, x), k, v
+
+
+def _full_inputs(cfg, params, batch):
+    """(h, rope, prefix_len) of a full-sequence pass: the image prefix (if
+    any) counts in the positions."""
+    h = embed_inputs(cfg, params, batch)
+    S = h.shape[1]
+    prefix = (cfg.num_image_tokens
+              if cfg.num_image_tokens and "image_emb" in batch else 0)
+    rope = _rope(cfg, torch.arange(S, device=h.device)[None, :])
+    return h, rope, prefix
 
 
 def forward(cfg, params, batch):
-    """batch["tokens"] (B, S) -> final hidden states (B, S, d), after the
-    final norm (logits are ``unembed`` of them)."""
-    tokens = batch["tokens"].long()
-    S = tokens.shape[1]
-    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :])
-    h = embed_tokens(cfg, params, tokens)
+    """batch["tokens"] (B, S_txt) [+ batch["image_emb"] (B, N, d)] -> final
+    hidden states (B, N + S_txt, d), after the final norm (logits are
+    ``unembed`` of them)."""
+    h, rope, prefix = _full_inputs(cfg, params, batch)
     for i in range(cfg.num_layers):
-        h = apply_layer_full(cfg, layer_params(params, i), h, rope)[0]
+        h = apply_layer_full(cfg, layer_params(params, i), h, rope,
+                             prefix_len=prefix)[0]
     return apply_norm(cfg, h, params["final_norm"])
 
 
@@ -199,19 +248,20 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
 
 
 def prefill(cfg, params, batch, max_len: int):
-    """Run the whole prompt batch["tokens"] (B, S): returns the last
+    """Run the whole prompt batch["tokens"] (B, S_txt), after the image
+    prefix batch["image_emb"] (B, N, d) of a VLM: returns the last
     position's logits (B, 1, V) fp32 and a new cache of ``max_len``
-    positions holding the prompt's K/V, with length S."""
-    tokens = batch["tokens"].long()
-    B, S = tokens.shape
+    positions holding the K/V of all S = N + S_txt positions, with length
+    S."""
+    h, rope, prefix = _full_inputs(cfg, params, batch)
+    B, S = h.shape[:2]
     if S > max_len:
-        raise ValueError(f"prefill: {S} prompt tokens exceed the cache's "
-                         f"{max_len} positions")
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
-    rope = _rope(cfg, torch.arange(S, device=tokens.device)[None, :])
-    h = embed_tokens(cfg, params, tokens)
+        raise ValueError(f"prefill: {S} prompt positions exceed the cache's "
+                         f"{max_len}")
+    cache = init_cache(cfg, B, max_len, device=h.device)
     for i in range(cfg.num_layers):
-        h, k, v = apply_layer_full(cfg, layer_params(params, i), h, rope)
+        h, k, v = apply_layer_full(cfg, layer_params(params, i), h, rope,
+                                   prefix_len=prefix)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     cache["length"].fill_(S)
@@ -230,7 +280,7 @@ def apply_layer_decode(cfg, layer, h, k_cache, v_cache, positions, rope):
     o = decode_attention(q, k_cache, v_cache, positions)
     h = h + attn_output(layer["attn"], o)
     x = apply_norm(cfg, h, layer["ln2"])
-    return h + apply_mlp(cfg, layer["mlp"], x)
+    return h + _ffn(cfg, layer, x, _decode_cf(cfg))
 
 
 def decode_step(cfg, params, cache, tokens):
@@ -294,7 +344,7 @@ def apply_layer_decode_paged(cfg, layer, h, k_pages, v_pages, tables,
     o = paged_attention(q.contiguous(), k_pages, v_pages, tables, lengths)
     h = h + attn_output(layer["attn"], o.to(h.dtype))
     x = apply_norm(cfg, h, layer["ln2"])
-    return h + apply_mlp(cfg, layer["mlp"], x)
+    return h + _ffn(cfg, layer, x, _decode_cf(cfg))
 
 
 def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):

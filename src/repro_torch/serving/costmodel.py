@@ -1,12 +1,16 @@
 """Hardware profile and the memory arithmetic the real tier needs: weight
 bytes and how many KV tokens fit beside the weights (the paged pool's size).
+A MoE's weights count every expert, and its fp32 router at 4 bytes.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
+import torch
+
 from ..configs.base import ModelConfig
-from ..models import registry
+from ..models import registry, transformer
 
 
 @dataclass(frozen=True)
@@ -41,15 +45,17 @@ class RooflineCostModel:
                  dtype_bytes: int = 2):
         self.hw = hw
         self.dtype_bytes = dtype_bytes
-        self._pcache = {}   # keyed by the (frozen) config itself, not its name
-
-    def _params(self, cfg: ModelConfig) -> int:
-        if cfg not in self._pcache:
-            self._pcache[cfg] = registry.param_count(cfg)
-        return self._pcache[cfg]
+        self._wcache = {}   # keyed by the (frozen) config itself, not its name
 
     def weight_bytes(self, cfg: ModelConfig) -> float:
-        return self._params(cfg) * self.dtype_bytes
+        """Every parameter at its leaf's own dtype where it has one (the
+        MoE router: fp32), else at ``dtype_bytes``."""
+        if cfg not in self._wcache:
+            self._wcache[cfg] = sum(
+                math.prod(s.shape) * (getattr(torch, s.dtype).itemsize
+                                      if s.dtype else self.dtype_bytes)
+                for s in registry.leaves(transformer.param_layout(cfg)))
+        return self._wcache[cfg]
 
     def kv_capacity_tokens(self, target: ModelConfig,
                            draft: ModelConfig | None, *,

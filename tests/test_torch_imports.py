@@ -39,6 +39,34 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(out.stdout.split()[-1]) >= 20
 
 
+NEW_FAMILY_MODULES = ["repro_torch.models.moe",
+                      "repro_torch.configs.granite_moe_1b",
+                      "repro_torch.configs.grok1_314b",
+                      "repro_torch.configs.paligemma_3b",
+                      "repro_torch.configs.gemma_7b"]
+
+
+@pytest.mark.parametrize("name", NEW_FAMILY_MODULES)
+def test_new_family_modules_import_without_jax(name):
+    """The MoE layer and the MoE / VLM configs import with JAX and the
+    reference blocked, and their models build on meta tensors."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "importlib.import_module(sys.argv[1])\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import registry\n"
+        "n = sum(registry.param_count(configs.get_config(a))\n"
+        "        for a in configs.list_archs())\n"
+        "print(n)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, name], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 0
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_import_of_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

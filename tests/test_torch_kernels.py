@@ -40,6 +40,19 @@ SWEEP = [(2, 4, 4, 64, 16, 3),    # MHA
          (2, 8, 1, 128, 8, 5)]    # MQA
 # the paper-7b pair's attention: target G=7 D=128, draft G=7 D=64, bs=8
 MAIN = [(2, 28, 4, 128, 8, 4), (3, 14, 2, 64, 8, 5)]
+# paged: (B, H, KH, D, bs, maxb) — paligemma's target (MQA, G = 8, D 256),
+# its draft (G = 4, D 128), granite's target and draft (G = 2, D 64)
+PAGED_NEW = [(2, 8, 1, 256, 8, 5), (3, 8, 1, 256, 4, 4),
+             (2, 4, 1, 128, 8, 5), (3, 16, 8, 64, 8, 4),
+             (2, 8, 4, 64, 8, 4)]
+# flash: (B, Sq, Sk, H, KH, D, causal, prefix_len) — paligemma's image
+# prefix (256 rows + 16 text tokens), ragged corners at D 256, gemma-7b's
+# MHA heads
+FLASH_256 = [(2, 272, 272, 8, 1, 256, True, 256),
+             (1, 37, 37, 8, 1, 256, True, 0),
+             (1, 200, 200, 8, 1, 256, True, 130),
+             (2, 37, 200, 8, 1, 256, False, 0),
+             (1, 130, 130, 16, 16, 256, True, 0)]
 
 
 def _attn_inputs(seed, B, T, H, KH, D, bs, maxb):
@@ -68,7 +81,7 @@ def _jax(jx, arrs, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T", [1, 4, 8])
-@pytest.mark.parametrize("B,H,KH,D,bs,maxb", SWEEP)
+@pytest.mark.parametrize("B,H,KH,D,bs,maxb", SWEEP + PAGED_NEW[:2])
 def test_plain_paged_attention_matches_jax_ref(jx, B, H, KH, D, bs, maxb, T,
                                                dtype):
     arrs = _attn_inputs(7, B, T, H, KH, D, bs, maxb)
@@ -367,7 +380,7 @@ def _need_cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T", [1, 4, 16])
-@pytest.mark.parametrize("B,H,KH,D,bs,maxb", SWEEP + MAIN)
+@pytest.mark.parametrize("B,H,KH,D,bs,maxb", SWEEP + MAIN + PAGED_NEW)
 def test_cuda_paged_attention_matches_plain(B, H, KH, D, bs, maxb, T, dtype):
     _need_cuda()
     arrs = _attn_inputs(13, B, T, H, KH, D, bs, maxb)
@@ -542,11 +555,14 @@ def _long_paged_inputs(seed, B, T, H, KH, D, bs, lengths):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("T", [1, 4, 16])
-@pytest.mark.parametrize("H,KH,D,bs", [(28, 4, 128, 8), (14, 2, 64, 4)])
+@pytest.mark.parametrize("H,KH,D,bs", [(28, 4, 128, 8), (14, 2, 64, 4),
+                                      (8, 1, 256, 8), (16, 8, 64, 8)])
 def test_cuda_paged_attention_split_kv_long_context(H, KH, D, bs, T, dtype):
     """Contexts up to 2,048 with ragged lengths in one batch: one sequence
     shorter than one split, one ending exactly on a split boundary; the
-    call takes several splits and the combine pass."""
+    call takes several splits and the combine pass.  The heads of the
+    paper-7b pair, paligemma's target (D 256, one KV head) and granite's
+    target."""
     _need_cuda()
     B = 4
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -617,4 +633,42 @@ def test_cuda_flash_attention_tensor_core_corners(case, dtype):
     want = tref.flash_attention_ref(*args, causal=causal,
                                     prefix_len=prefix_len)
     atol = 3e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 256 (paligemma-3b's target, gemma-7b) and the new pairs' heads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", FLASH_256)
+def test_plain_flash_attention_head_dim_256_matches_jax_blockwise(jx, case):
+    """The image-prefix attention of paligemma's prefill at D 256 against
+    the model's chunked jnp attention with ``prefix_len``."""
+    B, Sq, Sk, H, KH, D, causal, prefix_len = case
+    arrs = _flash_inputs(37, B, Sq, Sk, H, KH, D)
+    got = flash_attention(*map(torch.from_numpy, arrs), causal=causal,
+                          prefix_len=prefix_len)
+    want = jx.blockwise(*map(jx.jnp.asarray, arrs), causal=causal,
+                        prefix_len=prefix_len, chunk=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_256)
+def test_cuda_flash_attention_head_dim_256_matches_plain(case, dtype):
+    """Both flash kernels at D 256: the tensor-core one (bf16, Q read per
+    k-step from shared memory) and the CUDA-core one (fp32, TF32 off)."""
+    _need_cuda()
+    B, Sq, Sk, H, KH, D, causal, prefix_len = case
+    arrs = _flash_inputs(47, B, Sq, Sk, H, KH, D)
+    args = [torch.from_numpy(a).to(getattr(torch, dtype)).cuda()
+            for a in arrs]
+    n = flash_attention.launches
+    got = flash_attention(*args, causal=causal, prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    want = tref.flash_attention_ref(*args, causal=causal,
+                                    prefix_len=prefix_len)
+    atol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
