@@ -45,7 +45,23 @@ Phases (any failed check raises, and the script exits non-zero):
                ``forward`` at full width in bf16 and at 4 layers in fp32;
  13. moe_lossless — granite at full width and 4 layers, fp32, capacity
                factor 8.0 (no drops): AR, fixed-2, Nightjar and
-               target-as-draft greedy streams are equal.
+               target-as-draft greedy streams are equal;
+ 14. ssm_serve — the O(1)-state main path: the full-width, full-depth bf16
+               mamba2-780m pair (48 + 6 layers) served through
+               ``build_real_engine`` → ``DenseSlotBackend`` (no attention:
+               no kernel launches), then the draft's prefill at B = 8,
+               512 tokens (a catch-up's work, two SSD chunks);
+ 15. hybrid_serve — the zamba2-1.2b pair (38 + 4 layers) the same way: the
+               shared attention block's flash call at six points per
+               target prompt;
+ 16. encdec_prefix — whisper-medium at model level: ``prefill`` of 1,500
+               frame embeddings + 16 tokens (24 encoder, 24 causal and 24
+               cross-attention flash calls), 8 ``decode_step``s, held
+               against ``forward`` in bf16 at full depth and in fp32 at
+               4 + 4 layers;
+ 17. ssm_lossless — fp32 cut depth: mamba2 AR == fixed-2 == Nightjar ==
+               target-as-draft, zamba2 AR == fixed-2 == Nightjar, through
+               the engine (SSM checkpoint rollback).
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
@@ -69,7 +85,6 @@ CUDA device and the repository's ``src/``; it refuses to run otherwise.
 """
 from __future__ import annotations
 
-import gc
 import json
 import subprocess
 import sys
@@ -88,6 +103,7 @@ DRAFT_ATTN = dict(H=14, KH=2, D=64)            # paper-7b draft
 PALI_ATTN = dict(H=8, KH=1, D=256)             # paligemma-3b target (MQA)
 GRANITE_ATTN = dict(H=16, KH=8, D=64)          # granite-moe-1b target
 GRANITE, PALIGEMMA = "granite-moe-1b-a400m", "paligemma-3b"
+MAMBA2, ZAMBA2, WHISPER = "mamba2-780m", "zamba2-1.2b", "whisper-medium"
 REF_SWEEP = [(2, 4, 4, 64, 16, 3), (3, 8, 2, 64, 16, 4), (2, 8, 1, 128, 8, 5)]
 # flash attention checks: (B, Sq, Sk, H, KH, D, causal, prefix_len)
 FLASH_CASES = [
@@ -107,15 +123,25 @@ FLASH_256_CASES = [
     (2, 272, 272, 8, 1, 256, True, 256), (1, 37, 37, 8, 1, 256, True, 0),
     (1, 200, 200, 8, 1, 256, True, 130), (2, 37, 200, 8, 1, 256, False, 0),
     (1, 130, 130, 16, 16, 256, True, 0)]
-# flash attention timings (bf16, causal): label, B, S, H, KH, D,
+# the O(1)-state families' flash calls, held at ATOL: whisper-medium's
+# encoder and cross-attention (1,500 frames, MHA, non-causal, Sq != Sk) and
+# zamba2-1.2b's shared block (32/32 heads)
+FLASH_O1_CASES = [
+    (1, 1500, 1500, 16, 16, 64, False, 0),
+    (2, 16, 1500, 16, 16, 64, False, 0), (1, 16, 16, 32, 32, 64, True, 0)]
+# flash attention timings (bf16): label, B, Sq, Sk, H, KH, D, causal,
 # prefix_len
-FLASH_TIMED = [("dense serve prefill", 1, 16, 28, 4, 128, 0),
-               ("C_switch delta=128 B=2", 2, 128, 14, 2, 64, 0),
-               ("C_switch delta=256 B=8", 8, 256, 14, 2, 64, 0),
-               ("C_switch delta=512 B=32", 32, 512, 14, 2, 64, 0),
-               ("long target prefill", 1, 2048, 28, 4, 128, 0),
-               ("paligemma image-prefix prefill", 2, 272, 8, 1, 256, 256),
-               ("granite dense prefill", 1, 16, 16, 8, 64, 0)]
+FLASH_TIMED = [
+    ("dense serve prefill", 1, 16, 16, 28, 4, 128, True, 0),
+    ("C_switch delta=128 B=2", 2, 128, 128, 14, 2, 64, True, 0),
+    ("C_switch delta=256 B=8", 8, 256, 256, 14, 2, 64, True, 0),
+    ("C_switch delta=512 B=32", 32, 512, 512, 14, 2, 64, True, 0),
+    ("long target prefill", 1, 2048, 2048, 28, 4, 128, True, 0),
+    ("paligemma image-prefix prefill", 2, 272, 272, 8, 1, 256, True, 256),
+    ("granite dense prefill", 1, 16, 16, 16, 8, 64, True, 0),
+    ("whisper encoder", 1, 1500, 1500, 16, 16, 64, False, 0),
+    ("whisper cross-attention", 1, 16, 1500, 16, 16, 64, False, 0),
+    ("zamba2 shared-block prefill", 1, 16, 16, 32, 32, 64, True, 0)]
 # paged attention timings (bf16, B = 4, 8-position blocks): label, T,
 # context
 PAGED_TIMED = [("target decode B=4", 1, 32),
@@ -518,14 +544,16 @@ def phase_migrate(torch, gen, flush):
     return worst, rows
 
 
-def flash_bound(B, S, H, KH, D, dtype_name, es, prefix_len=0):
-    """Least time of one causal call: 4 * D flops per visible (query, key)
-    pair and head (query i sees max(i + 1, prefix_len) keys) over the
-    type's peak, against q, k and v read once and the output written once
-    over HBM bandwidth."""
-    pairs = sum(max(i + 1, min(prefix_len, S)) for i in range(S))
+def flash_bound(B, Sq, Sk, H, KH, D, causal, dtype_name, es,
+                prefix_len=0):
+    """Least time of one call: 4 * D flops per visible (query, key) pair and
+    head over the type's peak (causal: query i sees max(i + 1,
+    prefix_len) keys; non-causal: every query sees all Sk), against q, k
+    and v read once and the output written once over HBM bandwidth."""
+    pairs = (sum(max(i + 1, min(prefix_len, Sk)) for i in range(Sq))
+             if causal else Sq * Sk)
     flops = 4 * B * H * D * pairs
-    nbytes = es * B * S * D * (2 * H + 2 * KH)
+    nbytes = es * B * D * (2 * Sq * H + 2 * Sk * KH)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -544,65 +572,60 @@ def phase_flash(torch):
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for shape in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D))]
 
-    worst = {}
-    for dtype_name in ("float32", "bfloat16"):
-        worst[dtype_name] = 0.0
-        for B, Sq, Sk, H, KH, D, causal, prefix in FLASH_CASES:
-            args = inputs(B, Sq, Sk, H, KH, D, getattr(torch, dtype_name))
-            got = flash_attention(*args, causal=causal, prefix_len=prefix)
-            want = flash_attention_ref(*args, causal=causal,
-                                       prefix_len=prefix)
-            torch.cuda.synchronize()
-            assert torch.isfinite(got).all(), (B, Sq, Sk, H, KH, D)
-            err = (got.float() - want.float()).abs().max().item()
-            assert err <= FLASH_ATOL[dtype_name], (dtype_name, B, Sq, Sk, H,
-                                                   KH, D, causal, prefix, err)
-            worst[dtype_name] = max(worst[dtype_name], err)
-    worst256 = {}
-    for dtype_name in ("float32", "bfloat16"):
-        worst256[dtype_name] = 0.0
-        for B, Sq, Sk, H, KH, D, causal, prefix in FLASH_256_CASES:
-            args = inputs(B, Sq, Sk, H, KH, D, getattr(torch, dtype_name))
-            got = flash_attention(*args, causal=causal, prefix_len=prefix)
-            want = flash_attention_ref(*args, causal=causal,
-                                       prefix_len=prefix)
-            torch.cuda.synchronize()
-            assert torch.isfinite(got).all(), (B, Sq, Sk, H, KH, D)
-            err = (got.float() - want.float()).abs().max().item()
-            assert err <= ATOL[dtype_name], (dtype_name, B, Sq, Sk, H, KH,
-                                             D, causal, prefix, err)
-            worst256[dtype_name] = max(worst256[dtype_name], err)
-            worst[dtype_name] = max(worst[dtype_name], err)
+    worst, groups = {"float32": 0.0, "bfloat16": 0.0}, {}
+    for group, cases, atol in (("reference sweep", FLASH_CASES, FLASH_ATOL),
+                               ("head_dim 256", FLASH_256_CASES, ATOL),
+                               ("O(1)-state families", FLASH_O1_CASES,
+                                ATOL)):
+        errs = groups[group] = {"cases": len(cases), "atol": atol,
+                                "max_abs_err": {}}
+        for dtype_name in ("float32", "bfloat16"):
+            errs["max_abs_err"][dtype_name] = 0.0
+            for B, Sq, Sk, H, KH, D, causal, prefix in cases:
+                args = inputs(B, Sq, Sk, H, KH, D,
+                              getattr(torch, dtype_name))
+                got = flash_attention(*args, causal=causal,
+                                      prefix_len=prefix)
+                want = flash_attention_ref(*args, causal=causal,
+                                           prefix_len=prefix)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), (B, Sq, Sk, H, KH, D)
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= atol[dtype_name], (dtype_name, B, Sq, Sk, H,
+                                                 KH, D, causal, prefix, err)
+                errs["max_abs_err"][dtype_name] = max(
+                    errs["max_abs_err"][dtype_name], err)
+                worst[dtype_name] = max(worst[dtype_name], err)
     emit("check", kernel="flash_attention",
-         cases=len(FLASH_CASES) + len(FLASH_256_CASES), max_abs_err=worst,
-         atol=FLASH_ATOL, head_dim_256={"cases": len(FLASH_256_CASES),
-                                        "max_abs_err": worst256,
-                                        "atol": ATOL})
+         cases=sum(g["cases"] for g in groups.values()), max_abs_err=worst,
+         groups=groups)
 
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
     rows = []
-    for label, B, S, H, KH, D, prefix in FLASH_TIMED:
-        q, k, v = inputs(B, S, S, H, KH, D, torch.bfloat16)
+    for label, B, Sq, Sk, H, KH, D, causal, prefix in FLASH_TIMED:
+        q, k, v = inputs(B, Sq, Sk, H, KH, D, torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        kw = dict(causal=True, prefix_len=prefix)
+        kw = dict(causal=causal, prefix_len=prefix)
         if prefix:   # SDPA takes the prefix-causal mask as a boolean tensor
-            pos = torch.arange(S, device="cuda")
+            pos = torch.arange(Sq, device="cuda")
             lib_kw = dict(attn_mask=(pos[:, None] >= pos[None, :])
                           | (pos[None, :] < prefix))
         else:
-            lib_kw = dict(is_causal=True)
+            lib_kw = dict(is_causal=causal)
         got = flash_attention(q, k, v, **kw)
         want = flash_attention_ref(q, k, v, **kw)
         lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                              **lib_kw)
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.transpose(1, 2).float() - want.float()).abs().max()
-        assert err <= FLASH_ATOL["bfloat16"], (label, err)
+        assert err <= ATOL["bfloat16"], (label, err)
         assert lib_err.item() <= FLASH_ATOL["bfloat16"], (label, lib_err)
-        bound, by = flash_bound(B, S, H, KH, D, "bfloat16", q.element_size(),
-                                prefix)
+        bound, by = flash_bound(B, Sq, Sk, H, KH, D, causal, "bfloat16",
+                                q.element_size(), prefix)
         rows.append(dict(
-            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D}"
+            shape=f"{label}: B={B} "
+            + (f"S={Sq}" if Sq == Sk else f"Sq={Sq} Sk={Sk}")
+            + f" H={H} KH={KH} D={D}" + ("" if causal else " non-causal")
             + (f" prefix_len={prefix}" if prefix else ""),
             max_abs_err=err,
             ms=cuda_ms(torch, lambda: flash_attention(q, k, v, **kw),
@@ -936,26 +959,9 @@ def phase_elastic(params):
 
 
 def dense_engine(cfg, dcfg, params, *, policy="nightjar"):
-    """``build_dense_engine`` with a counter of draft catch-ups around the
-    backend's ``draft_catchup``."""
     from repro_torch.launch.serve import build_dense_engine
-    engine = build_dense_engine(cfg, dcfg, device="cuda", policy=policy,
-                                params=params)
-    be = engine.backend
-    be.catchups = {"calls": 0, "tokens": 0, "seconds": 0.0}
-    catchup = be.draft_catchup
-
-    def counted(seqs):
-        lagging = [s.delta for s in seqs if s.delta > 0]
-        dt = catchup(seqs)
-        if lagging and be.draft_resident:
-            be.catchups["calls"] += 1
-            be.catchups["tokens"] += sum(lagging)
-            be.catchups["seconds"] += dt
-        return dt
-
-    be.draft_catchup = counted
-    return engine
+    return build_dense_engine(cfg, dcfg, device="cuda", policy=policy,
+                              params=params)
 
 
 def phase_dense_serve(torch, params):
@@ -986,8 +992,8 @@ def phase_dense_serve(torch, params):
          output_tokens=m.total_tokens, tokens_per_s=m.total_tokens / wall,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          requests_finished=len(m.requests),
-         spec_steps=m.spec["spec_steps"], draft_catchups=engine.backend.catchups,
-         launches=counts,
+         spec_steps=m.spec["spec_steps"],
+         draft_catchups=engine.backend.catchups, launches=counts,
          step_ms={g: 1e3 * v["latency_s"] / v["steps"]
                   for g, v in m.spec["per_gamma"].items()},
          summary=m.summary())
@@ -1080,12 +1086,19 @@ class DropCounter:
     entry points set: ``decode`` (the AR step), ``verify`` (the target's
     pass of a speculative step) or ``prefill chunk`` (prefill and chunk
     appends, with any decode rows batched beside them).  Padded batch rows
-    are routed too, as the reference routes them, and count."""
+    are routed too, as the reference routes them, and count.  The wrappers
+    are taken off the backend again on exit: a wrapper of one of its bound
+    methods left on it would keep the backend, and its weights, in a
+    reference cycle."""
+
+    TAGS = {"_ar": "decode", "_spec": "verify",
+            "_extend_target": "prefill chunk"}
 
     def __init__(self, torch, backend):
         from repro_torch.models import moe
         self.moe, self.kind, self.stats = moe, None, {}
         self.orig = moe.apply_moe
+        self.backend = backend
         dev = backend.device
 
         def counted(cfg, p, x, *, capacity_factor=None):
@@ -1103,22 +1116,28 @@ class DropCounter:
             return self.orig(cfg, p, x, capacity_factor=capacity_factor)
         self.counted = counted
 
-        def tagged(kind, fn):
-            def run(*a, **kw):
-                self.kind = kind
-                return fn(*a, **kw)
-            return run
-        backend._ar = tagged("decode", backend._ar)
-        backend._spec = tagged("verify", backend._spec)
-        backend._extend_target = tagged("prefill chunk",
-                                        backend._extend_target)
+    def _tagged(self, kind, fn):
+        def run(*a, **kw):
+            self.kind = kind
+            return fn(*a, **kw)
+        return run
 
     def __enter__(self):
         self.moe.apply_moe = self.counted
+        be = self.backend
+        self.saved = {name: be.__dict__.get(name) for name in self.TAGS}
+        for name, kind in self.TAGS.items():
+            setattr(be, name, self._tagged(kind, getattr(be, name)))
         return self
 
     def __exit__(self, *exc):
         self.moe.apply_moe = self.orig
+        for name, fn in self.saved.items():
+            if fn is None:          # a method of the class
+                delattr(self.backend, name)
+            else:
+                setattr(self.backend, name, fn)
+        self.backend = self.saved = None
 
     def summary(self):
         return {k: {"calls": v["calls"], "slots": v["slots"],
@@ -1130,18 +1149,25 @@ class DropCounter:
 def serve_pair(torch, arch, *, count_drops=False):
     """``phase_serve`` for another pair: the full-width bf16 pair of
     ``arch`` through ``build_real_engine`` with the serve's traffic, after a
-    warm-up run on other prompts.  With ``count_drops`` the same requests
-    are served once more on a fresh engine under a :class:`DropCounter`
-    (kept out of the timed run: its routing adds work)."""
+    warm-up run on other prompts.  A pair with a paged path runs it with
+    prefix caching and a chunk budget of 16 (and must launch paged
+    attention and migrations); one without (ssm, hybrid) gets
+    ``DenseSlotBackend`` with monolithic prefill, and its draft catch-ups
+    are reported.  With ``count_drops`` the same requests are served once
+    more on a fresh engine under a :class:`DropCounter` (kept out of the
+    timed run: its routing adds work)."""
     from repro_torch import configs
     from repro_torch.launch.serve import build_real_engine
+    from repro_torch.models import registry
     cfg, dcfg = configs.get_config(arch), configs.get_draft_config(arch)
-    kw = dict(device="cuda", dtype="bfloat16", policy="nightjar",
-              prefix_caching=True, chunk_tokens=16, seed=0)
-    # earlier phases' engines hold their weights in reference cycles: free
-    # them, so the peak below is this pair's own
-    gc.collect()
+    paged = all(registry.get_model(c).supports_paged for c in (cfg, dcfg))
+    kw = dict(device="cuda", dtype="bfloat16", policy="nightjar", seed=0)
+    if paged:
+        kw.update(prefix_caching=True, chunk_tokens=16)
     torch.cuda.empty_cache()
+    # what earlier phases left allocated: ~0 when nothing holds their
+    # weights, so the peak below is this pair's own
+    left_over = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     warm = build_real_engine(cfg, dcfg, **kw)
     torch.cuda.synchronize()
@@ -1162,21 +1188,28 @@ def serve_pair(torch, arch, *, count_drops=False):
     outs = streams(engine, reqs)
     check_run(m, reqs, outs, cfg.vocab_size)
     assert m.spec.get("spec_steps", 0) >= 1, m.spec
-    assert counts["paged_attention"] > 0 and counts["migrate_blocks"] > 0, \
-        counts
-    assert counts["flash_attention"] == 0, counts
+    if paged:
+        assert counts["paged_attention"] > 0 \
+            and counts["migrate_blocks"] > 0, counts
+        assert counts["flash_attention"] == 0, counts
     fields = dict(
         model=f"{arch} full width and depth, bf16", wall_s=wall,
+        backend=type(engine.backend).__name__,
         target_layers=cfg.num_layers, draft_layers=dcfg.num_layers,
         setup_s=setup_s, output_tokens=m.total_tokens,
         tokens_per_s=m.total_tokens / wall,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        pool_blocks=engine.backend.bm.total_blocks,
+        allocated_before_phase_bytes=left_over,
         requests_finished=len(m.requests), steps=m.spec.get("steps", 0),
-        spec_steps=m.spec["spec_steps"],
-        prefix_forks=m.prefix.get("forks", 0), launches=counts,
+        spec_steps=m.spec["spec_steps"], launches=counts,
         step_ms={g: 1e3 * v["latency_s"] / v["steps"]
                  for g, v in m.spec["per_gamma"].items()})
+    if paged:
+        fields.update(pool_blocks=engine.backend.bm.total_blocks,
+                      prefix_forks=m.prefix.get("forks", 0))
+    else:
+        fields.update(draft_catchups=engine.backend.catchups,
+                      prompts=len(reqs))
     del engine
     if count_drops:
         engine = build_real_engine(cfg, dcfg, params=params, **kw)
@@ -1319,6 +1352,218 @@ def phase_vlm_prefix(torch):
          f"tokens, then 8 decode steps", **out)
     return out["bf16"]["flash_launches_head_dim_256"]
 
+
+
+# ---------------------------------------------------------------------------
+# phases 14-17: the O(1)-state families
+# ---------------------------------------------------------------------------
+
+
+def phase_ssm_serve(torch):
+    """The mamba2-780m pair through ``build_real_engine`` (ssm target and
+    draft: ``DenseSlotBackend``).  No attention anywhere, so no kernel of
+    the port may launch.  Then the draft's ``prefill`` at B = 8 and 512
+    tokens (two SSD chunks, so the inter-chunk recurrence runs): the work
+    of a catch-up, host clock between synchronises, median of five after
+    a warm-up call."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    counts, fields = serve_pair(torch, MAMBA2)
+    assert fields["backend"] == "DenseSlotBackend", fields["backend"]
+    assert not any(counts.values()), counts
+    dcfg = configs.get_draft_config(MAMBA2).replace(dtype="bfloat16")
+    api = registry.get_model(dcfg)
+    params = api.init(device="cuda", seed=2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, dcfg.vocab_size, (8, 512),
+                                     generator=gen, device="cuda")}
+    api.prefill(params, batch)
+    ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = api.prefill(params, batch)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    assert torch.isfinite(lg).all() and torch.isfinite(cache["ssm"]).all()
+    fields["draft_prefill_B8_delta512_ms"] = sorted(ts)[2]
+    emit("ssm_serve", **fields)
+    del params, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_hybrid_serve(torch):
+    """The zamba2-1.2b pair (hybrid target, ssm draft) through
+    ``build_real_engine`` → ``DenseSlotBackend``: every target prompt runs
+    the shared attention block's flash call at each of its six points."""
+    from repro_torch import configs
+    from repro_torch.models.hybrid import attn_points
+    counts, fields = serve_pair(torch, ZAMBA2)
+    assert fields["backend"] == "DenseSlotBackend", fields["backend"]
+    points = len(attn_points(configs.get_config(ZAMBA2)))
+    assert points == 6, points
+    assert counts["flash_attention"] >= points * fields["prompts"], counts
+    assert counts["paged_attention"] == counts["migrate_blocks"] == 0, \
+        counts
+    emit("hybrid_serve", **fields)
+    return counts
+
+
+class FlashKinds:
+    """Counts the flash calls of ``models.common.blockwise_attention`` by
+    kind — ``causal``, ``non-causal Sq == Sk`` (an encoder) and
+    ``non-causal Sq != Sk`` (a cross-attention) — by swapping the module's
+    ``flash_attention`` for a wrapper that tallies and calls through; the
+    kernel's own ``launches`` count is untouched."""
+
+    def __init__(self):
+        from repro_torch.models import common
+        self.common, self.orig, self.kinds = common, common.flash_attention, {}
+
+    def __enter__(self):
+        def tally(q, k, v, *, causal, prefix_len=0):
+            kind = ("causal" if causal else "non-causal Sq == Sk"
+                    if q.shape[1] == k.shape[1] else "non-causal Sq != Sk")
+            self.kinds[kind] = self.kinds.get(kind, 0) + 1
+            return self.orig(q, k, v, causal=causal, prefix_len=prefix_len)
+        self.common.flash_attention = tally
+        return self
+
+    def __exit__(self, *exc):
+        self.common.flash_attention = self.orig
+
+
+def encdec_check(torch, cfg, params):
+    """B = 2: ``prefill`` of 1,500 seeded frame embeddings and 16 tokens,
+    then 8 ``decode_step``s; each step's logits against ``forward`` over
+    the whole sequence.  Returns (max |difference|, max |forward logit|,
+    prefill ms, flash launches of the prefill, by kind)."""
+    from repro_torch.models import registry
+    from repro_torch.models.common import tied_unembed
+    api = registry.get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    S, steps, B = 16, 8, 2
+    enc = torch.randn((B, cfg.enc_context, cfg.d_model), generator=gen,
+                      device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                        device="cuda")
+    batch = {"tokens": tok[:, :S], "enc_emb": enc}
+    api.prefill(params, batch, S + steps)
+    torch.cuda.synchronize()
+    reset_counts()
+    with FlashKinds() as fk:
+        t0 = time.perf_counter()
+        lg, cache = api.prefill(params, batch, S + steps)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    flash = read_counts()["flash_attention"]
+    want_kinds = {"causal": cfg.dec_layers,
+                  "non-causal Sq == Sk": cfg.enc_layers,
+                  "non-causal Sq != Sk": cfg.dec_layers}
+    assert fk.kinds == want_kinds, fk.kinds
+    assert flash == sum(want_kinds.values()), flash
+    got = [lg[:, 0]]
+    for t in range(S, S + steps - 1):
+        lg, cache = api.decode_step(params, cache, tok[:, t:t + 1])
+        got.append(lg[:, 0])
+    got = torch.stack(got, 1)
+    h = api.forward(params, {"tokens": tok[:, :S + steps - 1],
+                             "enc_emb": enc})
+    want = tied_unembed(params, h[:, S - 1:])
+    assert got.shape == want.shape == (B, steps, cfg.vocab_size)
+    assert torch.isfinite(got).all()
+    return ((got - want).abs().max().item(), want.abs().max().item(),
+            prefill_ms, flash, fk.kinds)
+
+
+def phase_encdec_prefix(torch):
+    """whisper-medium at model level (the engine serves no audio, as in the
+    reference): full width and depth (24 + 24) in bf16, held within 5 % of
+    the largest logit, and 4 + 4 layers in fp32 with TF32 off within 1e-4.
+    Every full-depth prefill runs 24 encoder, 24 causal self-attention and
+    24 cross-attention flash calls."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = configs.get_config(WHISPER)
+    out = {}
+    for name, cfg in (("bf16", base.replace(dtype="bfloat16")),
+                      ("fp32", base.replace(enc_layers=4, dec_layers=4,
+                                            dtype="float32"))):
+        params = registry.get_model(cfg).init(device="cuda", seed=7)
+        err, scale, ms, flash, kinds = encdec_check(torch, cfg, params)
+        limit = 0.05 * scale if name == "bf16" else 1e-4
+        assert err <= limit, (name, err, limit)
+        out[name] = {"layers": [cfg.enc_layers, cfg.dec_layers],
+                     "max_abs_err": err, "limit": limit,
+                     "max_abs_logit": scale, "prefill_ms": ms,
+                     "flash_launches": flash, "flash_by_kind": kinds}
+        del params
+        torch.cuda.empty_cache()
+    emit("encdec_prefix", model=f"{WHISPER}, B=2, 1,500 frame embeddings + "
+         f"16 tokens, then 8 decode steps", **out)
+    return out["bf16"]["flash_launches"]
+
+
+def phase_ssm_lossless(torch):
+    """tests/test_spec_engine.py's SSM case on the card, fp32 with TF32 off
+    through ``build_real_engine`` → ``DenseSlotBackend``: mamba2 at 4 + 4
+    layers under AR, fixed-2, Nightjar and Nightjar with the target as its
+    own draft (which accepts, so checkpoint indices above 0 are taken);
+    zamba2 at 6 layers (one shared-attention point) with its 4-layer ssm
+    draft under AR, fixed-2 and Nightjar (a hybrid draft is refused, as in
+    the reference).  Each pair's greedy streams are equal."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import build_real_engine
+    from repro_torch.models import registry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuts = ((MAMBA2, 4, 4), (ZAMBA2, 6, 4))
+    summary = {}
+    for arch, tl, dl in cuts:
+        cfg = configs.get_config(arch).replace(num_layers=tl, dtype="float32")
+        dcfg = configs.get_draft_config(arch).replace(num_layers=dl,
+                                                      dtype="float32")
+        params = (registry.get_model(cfg).init(device="cuda", seed=1),
+                  registry.get_model(dcfg).init(device="cuda", seed=2))
+        runs = [("ar", "ar", dcfg, params),
+                ("fixed-2", "fixed-2", dcfg, params),
+                ("nightjar", "nightjar", dcfg, params)]
+        if cfg.family == "ssm":
+            runs.append(("nightjar, draft = target", "nightjar", cfg,
+                         (params[0], params[0])))
+        out, accepted = {}, {}
+        for name, policy, draft_cfg, pair in runs:
+            engine = build_real_engine(cfg, draft_cfg, device="cuda",
+                                       policy=policy, seed=0, params=pair)
+            reqs = requests(cfg.vocab_size)
+            reset_counts()
+            m = engine.run(reqs, max_steps=5000, record_timeline=True)
+            counts = read_counts()
+            out[name] = streams(engine, reqs)
+            check_run(m, reqs, out[name], cfg.vocab_size)
+            accepted[name] = sum(g["accepted"] for gam, g in
+                                 m.spec.get("per_gamma", {}).items()
+                                 if gam > 0)
+            if policy != "ar":
+                assert m.spec.get("spec_steps", 0) >= 1, m.spec
+            emit("ssm_lossless_run", model=arch, run=name,
+                 spec=m.spec_summary(), accepted_tokens=accepted[name],
+                 launches=counts)
+            del engine
+        if cfg.family == "ssm":
+            assert accepted["nightjar, draft = target"] > 0, accepted
+        for name in out:
+            assert out[name] == out["ar"], f"fp32 {arch} {name} != AR"
+        summary[arch] = {"target_layers": tl, "draft_layers": dl,
+                         "runs": list(out), "accepted_tokens": accepted}
+        del params
+        torch.cuda.empty_cache()
+    emit("ssm_lossless", model="fp32, TF32 off, full width, cut depth",
+         requests=8, equal=True, **summary)
+
 # ---------------------------------------------------------------------------
 
 
@@ -1377,6 +1622,10 @@ def main() -> int:
     by_path["moe_serve"] = phase_moe_serve(torch)
     by_path["vlm_serve"] = phase_vlm_serve(torch)
     by_path["vlm_prefix"] = {"flash_attention": phase_vlm_prefix(torch)}
+    by_path["ssm_serve"] = phase_ssm_serve(torch)
+    by_path["hybrid_serve"] = phase_hybrid_serve(torch)
+    by_path["encdec_prefix"] = {"flash_attention":
+                                phase_encdec_prefix(torch)}
 
     from repro_torch.models import registry
     cfg, dcfg = fp32_cut()
@@ -1388,6 +1637,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_moe_lossless(torch)
+    phase_ssm_lossless(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
                                  flash_rows, by_path)))

@@ -1,22 +1,27 @@
 """Config registry of the port: the architectures it serves, their draft
 pairings, and reduced configs for CPU tests.
 
-Data only — a copy of the reference registry, limited to the dense, MoE and
-VLM families that the port's transformer covers.
+Data only — a copy of the reference registry: every architecture of the
+reference, each family served by its own model module.
 """
 from __future__ import annotations
 
 from .base import ModelConfig
 from . import (deepseek_7b, gemma_7b, granite_moe_1b, grok1_314b,
-               paligemma_3b, paper_7b, qwen3_14b)
+               mamba2_780m, paligemma_3b, paper_7b, qwen2_72b, qwen3_14b,
+               whisper_medium, zamba2_1p2b)
 
 _MODULES = {
+    "whisper-medium": whisper_medium,
     "deepseek-7b": deepseek_7b,
     "gemma-7b": gemma_7b,
+    "qwen2-72b": qwen2_72b,
     "qwen3-14b": qwen3_14b,
     "grok-1-314b": grok1_314b,
     "granite-moe-1b-a400m": granite_moe_1b,
+    "zamba2-1.2b": zamba2_1p2b,
     "paligemma-3b": paligemma_3b,
+    "mamba2-780m": mamba2_780m,
     "paper-7b": paper_7b,
 }
 

@@ -9,7 +9,9 @@ draft step per round — so both caches advance in lockstep and rollback is
 free: each sequence's length advances by n_accepted+1 (on the host for the
 pools, in the dense caches' ``length``), and the stale slots beyond it are
 never attended (the attention masks pos <= query position) and are
-overwritten by the next step's writes.
+overwritten by the next step's writes.  An SSM state has no positions to
+mask: an ssm or hybrid model restores it from per-token checkpoints
+(:func:`_rollback_ssm_cache`), the analogue of KV truncation.
 """
 from __future__ import annotations
 
@@ -104,6 +106,27 @@ def make_paged_ar_step(target: ModelAPI, *, sampling: str = "greedy",
     return ar_step
 
 
+def _select_ckpt(x, idx):
+    """x (T, L, B, ...) per-step checkpoints -> (L, B, ...): sequence b's
+    state at step idx[b]."""
+    idx = idx.long().clamp(0, x.shape[0] - 1)
+    rows = torch.arange(x.shape[2], device=x.device)
+    return x[idx, :, rows].transpose(0, 1)       # (B, L, ...) -> (L, B, ...)
+
+
+def _rollback_ssm_cache(cache_ext, base_cache, n_keep):
+    """Restore conv / ssm from checkpoint n_keep - 1 (the state after the
+    first n_keep chunk tokens; n_keep >= 1, the chunk starts with the last
+    committed token).  Attention parts (a hybrid's) roll back by length
+    alone.  The returned cache has no ``checkpoints``."""
+    ck = cache_ext["checkpoints"]
+    out = {k: v for k, v in cache_ext.items() if k != "checkpoints"}
+    out["conv"] = _select_ckpt(ck["conv"], n_keep - 1)
+    out["ssm"] = _select_ckpt(ck["ssm"], n_keep - 1)
+    out["length"] = (base_cache["length"] + n_keep).to(torch.int32)
+    return out
+
+
 def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
                    sampling: str = "greedy", temperature: float = 1.0):
     """Build ``spec_step(gen, tparams, dparams, tcache, dcache, last_tokens,
@@ -111,13 +134,20 @@ def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
 
     Both caches hold N tokens (their ``length``); the draft consumes the
     (gamma+1)-token chunk, the target verifies it in one extension, and
-    both caches come back with length N + n_accepted + 1 (the attention
-    caches' rollback; the SSM checkpoint rollback comes with the O(1)-state
-    families).  The k/v tensors are updated in place."""
+    both caches come back with length N + n_accepted + 1.  Attention
+    caches roll back by that length alone (their k / v tensors are updated
+    in place); an ssm or hybrid target restores its conv / SSM state from
+    the extension's per-token ``checkpoints``, and an ssm draft from the
+    state after each of its chain steps, each at n_keep - 1 per sequence.
+    A hybrid draft is refused, as in the reference."""
+    t_is_ssm = target.cfg.family in ("ssm", "hybrid")
+    d_is_ssm = draft.cfg.family == "ssm"
+    if draft.cfg.family == "hybrid":
+        raise NotImplementedError("use a pure-ssm or attention draft model")
 
     def spec_step(gen, tparams, dparams, tcache, dcache, last_tokens,
                   gamma: int):
-        tok, toks, probs = last_tokens, [], []
+        tok, toks, probs, conv_ck, ssm_ck = last_tokens, [], [], [], []
         for _ in range(gamma + 1):
             logits, dcache = draft.decode_step(dparams, dcache, tok[:, None])
             lg = logits[:, 0] / temperature
@@ -127,6 +157,9 @@ def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
                 probs.append(torch.softmax(lg, dim=-1))
                 tok = torch.multinomial(probs[-1], 1, generator=gen)[:, 0]
             toks.append(tok)
+            if d_is_ssm:
+                conv_ck.append(dcache["conv"])
+                ssm_ck.append(dcache["ssm"])
         draft_tokens = torch.stack(toks[:gamma], dim=1)            # (B, g)
 
         chunk = torch.cat([last_tokens[:, None].long(), draft_tokens], dim=1)
@@ -139,12 +172,22 @@ def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
                                    torch.stack(probs[:gamma], dim=1),
                                    torch.softmax(t_logits, dim=-1))
         n_acc = res["n_accepted"]
-        length = (tcache["length"] + 1 + n_acc).to(torch.int32)
+        n_keep = 1 + n_acc      # chunk tokens kept: x_N + accepted drafts
+        length = (tcache["length"] + n_keep).to(torch.int32)
+        if t_is_ssm:
+            tcache_new = _rollback_ssm_cache(tcache_ext, tcache, n_keep)
+        else:
+            tcache_new = {k: v for k, v in tcache_ext.items()
+                          if k != "checkpoints"}
+            tcache_new["length"] = length
+        dcache_new = {**dcache, "length": length}
+        if d_is_ssm:
+            dcache_new["conv"] = _select_ckpt(torch.stack(conv_ck),
+                                              n_keep - 1)
+            dcache_new["ssm"] = _select_ckpt(torch.stack(ssm_ck), n_keep - 1)
         return SpecResult(tokens=res["tokens"], n_accepted=n_acc,
-                          n_committed=n_acc + 1,
-                          tcache={**tcache_ext, "length": length},
-                          dcache={**dcache, "length": length},
-                          last_token=res["next_token"])
+                          n_committed=n_acc + 1, tcache=tcache_new,
+                          dcache=dcache_new, last_token=res["next_token"])
 
     return spec_step
 

@@ -5,7 +5,9 @@
 Builds the full-width bf16 pair of ``--arch`` (default paper-7b; also
 granite-moe-1b-a400m, paligemma-3b, ...) as ``chip_smoke.py`` serves it,
 once on the paged path (``build_real_engine``) and once on the dense-cache
-path (``build_dense_engine``, same weights).  For each it warms up on four
+path (``build_dense_engine``, same weights).  A pair without a paged path
+(mamba2-780m, zamba2-1.2b) has only the dense-slot path, which
+``build_real_engine`` gives it: one line.  For each it warms up on four
 requests, then serves eight more under ``torch.profiler`` and prints one
 JSON line: the wall time (profiler overhead included), the device's busy
 time (the union of its kernel intervals) and idle share, the number of
@@ -24,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import configs
+from ..models import registry
 from ..serving.workload import tiny_requests
 from .serve import build_dense_engine, build_real_engine
 
@@ -98,6 +101,12 @@ def main():
     arch = ap.parse_args().arch
     cfg = configs.get_config(arch).replace(dtype="bfloat16")
     dcfg = configs.get_draft_config(arch).replace(dtype="bfloat16")
+    if not all(registry.get_model(c).supports_paged for c in (cfg, dcfg)):
+        engine = build_real_engine(cfg, dcfg, device="cuda",
+                                   policy="nightjar", seed=0)
+        print(json.dumps(profile_run(engine, "dense slot", arch,
+                                     cfg.vocab_size)))
+        return
     engine = build_real_engine(cfg, dcfg, device="cuda", policy="nightjar",
                                prefix_caching=True, chunk_tokens=16, seed=0)
     print(json.dumps(profile_run(engine, "paged", arch, cfg.vocab_size)),

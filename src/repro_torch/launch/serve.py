@@ -5,11 +5,16 @@
       --dataset templated --chunk-tokens 8 --prefix-caching on
 
 ``main`` serves ``configs.reduced`` models of any ``--arch`` (the
-granite-moe-1b-a400m and paligemma-3b pairs included), as the reference's
-real tier does; :func:`build_real_engine` and :func:`build_dense_engine`
-(the dense-cache tier) take any config pair (``chip_smoke.py`` serves the
-full-width paper-7b pair through both, and the full-width granite and
-paligemma pairs through the first).
+granite-moe-1b-a400m, paligemma-3b, mamba2-780m and zamba2-1.2b pairs
+included; whisper-medium's encoder-decoder is not served, as in the
+reference), as the reference's real tier does; :func:`build_real_engine`
+and :func:`build_dense_engine` (the dense-cache tier) take any config pair
+(``chip_smoke.py`` serves the full-width paper-7b pair through both, and
+the full-width granite, paligemma, mamba2 and zamba2 pairs through the
+first).  An ssm or hybrid pair has no paged path: ``build_real_engine``
+serves it through ``DenseSlotBackend`` with monolithic prefill, so
+``--chunk-tokens``, ``--prefix-caching`` and ``--kv-offload`` are refused
+for it.
 """
 from __future__ import annotations
 
@@ -46,15 +51,24 @@ def build_real_engine(cfg: ModelConfig, dcfg: ModelConfig, *,
                       ) -> ServingEngine:
     """One BlockManager drives both the scheduler's admission and the
     physical paged pools, sized from the H100 memory budget; the backend is
-    ``make_real_backend``'s choice (the paged ``RealBackend`` for the dense
-    family).  With a ``RealBackend`` the elastic memory manager can offload
-    the draft and grow / migrate / shrink the pools.  ``dtype`` overrides
-    both configs' dtype.  ``params`` is a (target, draft) pair of parameter
-    trees; without it both are seeded from ``seed``.  Prefix caching needs
-    a chunk budget (the monolithic scheduler always recomputes prompts)."""
+    ``make_real_backend``'s choice (the paged ``RealBackend`` for the
+    attention families, ``DenseSlotBackend`` for an ssm or hybrid pair,
+    whose monolithic prefill takes no chunk budget and no prefix cache:
+    asking for either raises ``ValueError``).  With a ``RealBackend`` the
+    elastic memory manager can offload the draft and grow / migrate /
+    shrink the pools.  ``dtype`` overrides both configs' dtype.  ``params``
+    is a (target, draft) pair of parameter trees; without it both are
+    seeded from ``seed``.  Prefix caching needs a chunk budget (the
+    monolithic scheduler always recomputes prompts)."""
     if dtype is not None:
         cfg, dcfg = cfg.replace(dtype=dtype), dcfg.replace(dtype=dtype)
     target, draft = registry.get_model(cfg), registry.get_model(dcfg)
+    if not (target.supports_paged and draft.supports_paged) and (
+            chunk_tokens or prefix_caching or kv_offload):
+        raise ValueError(
+            f"{cfg.name}: the pair has no paged path, so it is served by "
+            f"DenseSlotBackend with monolithic prefill: no chunk_tokens, "
+            f"prefix caching or KV offload")
     cm = RooflineCostModel(H100_SXM)
     nb = num_blocks_for(cm, cfg, dcfg, BLOCK_SIZE, max_blocks=MAX_BLOCKS)
     bm = BlockManager(nb, BLOCK_SIZE, prefix_caching=prefix_caching,

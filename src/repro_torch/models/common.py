@@ -26,7 +26,7 @@ class Spec(NamedTuple):
     """One parameter: its shape, initialiser, fan-in and dtype (None: the
     model's)."""
     shape: Tuple[int, ...]
-    init: str          # dense | embed | ones | zeros
+    init: str    # dense | embed | normal | ones | zeros | a_log | dt_bias
     fan_in: int = 0
     dtype: Optional[str] = None
 
@@ -44,6 +44,81 @@ def embed_init_(t: torch.Tensor, gen: torch.Generator):
     tmp.normal_(0.0, 1.0, generator=gen)
     t.copy_(tmp.mul_(0.02))
     return t
+
+
+def map_layout(fn, layout):
+    """``fn`` applied to every :class:`Spec` of a nested dict."""
+    if isinstance(layout, Spec):
+        return fn(layout)
+    return {k: map_layout(fn, v) for k, v in layout.items()}
+
+
+def leaves(tree):
+    """The leaves of a nested dict (tensors, or a layout's :class:`Spec`),
+    in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def leaf_dtype(cfg, s: Spec) -> torch.dtype:
+    return getattr(torch, s.dtype or cfg.dtype)
+
+
+def specs_of(cfg, layout):
+    """A layout as meta tensors: shapes and dtypes, no storage."""
+    return map_layout(lambda s: torch.empty(
+        s.shape, dtype=leaf_dtype(cfg, s), device="meta"), layout)
+
+
+def init_layout(cfg, layout, dev: torch.device, seed: int):
+    """Seeded random weights of a layout on ``dev``, drawn from one
+    ``torch.Generator``: the reference's distributions — truncated-normal
+    fan-in ``dense``, N(0, 0.02) ``embed``, N(0, 1/fan_in) ``normal`` (the
+    SSM conv), unit / zero norms and biases, and an SSM layer's
+    ``A_log = log(linspace(1, 16, H))`` and ``dt_bias``, the inverse
+    softplus of a log-uniform draw in [1e-3, 1e-1]."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(s: Spec):
+        dt = leaf_dtype(cfg, s)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=dev)
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=dev)
+        if s.init == "a_log":
+            a = torch.log(torch.linspace(1.0, 16.0, s.shape[-1],
+                                         device=dev))
+            return a.expand(s.shape).to(dt).clone()
+        t = torch.empty(s.shape, dtype=dt, device=dev)
+        if s.init == "embed":
+            return embed_init_(t, gen)
+        if s.init == "dense":
+            return dense_init_(t, s.fan_in, gen)
+        tmp = torch.empty(s.shape, dtype=torch.float32, device=dev)
+        if s.init == "normal":
+            tmp.normal_(0.0, 1.0, generator=gen).mul_(s.fan_in ** -0.5)
+        elif s.init == "dt_bias":
+            tmp.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
+            tmp = torch.log(torch.expm1(torch.exp(tmp)))
+        else:
+            raise ValueError(f"unknown initialiser {s.init!r}")
+        return t.copy_(tmp)
+
+    return map_layout(make, layout)
+
+
+def stacked(params, i: int):
+    """Entry ``i`` of a tree stacked on a leading axis, as views."""
+    if isinstance(params, dict):
+        return {k: stacked(v, i) for k, v in params.items()}
+    return params[i]
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +182,7 @@ def apply_rope(x, rope):
 # ---------------------------------------------------------------------------
 
 
-def _proj(x, w):
+def head_proj(x, w):
     """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd)."""
     d, H, hd = w.shape
     return (x @ w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
@@ -116,7 +191,8 @@ def _proj(x, w):
 def qkv_project(cfg, p, x, rope):
     """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KH,hd) with bias, qk-norm and
     RoPE (``rope_angles`` of the positions, or None) applied."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (head_proj(x, p["wq"]), head_proj(x, p["wk"]),
+               head_proj(x, p["wv"]))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -183,6 +259,14 @@ def cache_write(cache, new, start):
     rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
     pos = start.long()[:, None] + torch.arange(T, device=cache.device)
     return cache.index_put_((rows, pos), new.to(cache.dtype))
+
+
+def tied_unembed(params, h):
+    """h (B, T, d) @ embed.T -> fp32 logits (B, T, V), the product in the
+    model dtype: the unembedding of the ssm, hybrid and encoder-decoder
+    families, which always reuse the embedding (the reference's
+    ``_unembed_table``)."""
+    return (h @ params["embed"].t()).float()
 
 
 def apply_mlp(cfg, p, x):

@@ -29,17 +29,13 @@ from .. import device as _device
 from ..kernels.paged_attention import paged_attention
 from .common import (Spec, apply_mlp, apply_norm, attn_output,
                      blockwise_attention, cache_write, decode_attention,
-                     dense_init_, embed_init_, qkv_project, rope_angles)
+                     model_dtype, qkv_project, rope_angles, stacked)
 from . import moe
 
 Params = Dict[str, Any]
 
 
-def _dtype(cfg) -> torch.dtype:
-    return getattr(torch, cfg.dtype)
-
-
-def _norm_layout(cfg, lead=()):
+def norm_layout(cfg, lead=()):
     d = cfg.d_model
     if cfg.norm_type == "layernorm":
         return {"scale": Spec(lead + (d,), "ones"),
@@ -48,41 +44,50 @@ def _norm_layout(cfg, lead=()):
                            else "ones")}
 
 
+def attn_layout(cfg, lead=(), *, cross: bool = False):
+    """One attention block's projections (the reference's
+    ``init_attention``): a cross-attention block has no qkv bias."""
+    d, H, KH, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    attn = {
+        "wq": Spec(lead + (d, H, hd), "dense", d),
+        "wk": Spec(lead + (d, KH, hd), "dense", d),
+        "wv": Spec(lead + (d, KH, hd), "dense", d),
+        "wo": Spec(lead + (H, hd, d), "dense", H * hd),
+    }
+    if cfg.qkv_bias and not cross:
+        attn.update(bq=Spec(lead + (H, hd), "zeros"),
+                    bk=Spec(lead + (KH, hd), "zeros"),
+                    bv=Spec(lead + (KH, hd), "zeros"))
+    if cfg.qk_norm:
+        attn.update(q_norm=Spec(lead + (hd,), "ones"),
+                    k_norm=Spec(lead + (hd,), "ones"))
+    return attn
+
+
+def mlp_layout(cfg, lead=()):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"wg": Spec(lead + (d, f), "dense", d),
+                "wu": Spec(lead + (d, f), "dense", d),
+                "wd": Spec(lead + (f, d), "dense", f)}
+    return {"w1": Spec(lead + (d, f), "dense", d),
+            "b1": Spec(lead + (f,), "zeros"),
+            "w2": Spec(lead + (f, d), "dense", f),
+            "b2": Spec(lead + (d,), "zeros")}
+
+
 def param_layout(cfg) -> Dict[str, Any]:
     """Nested dict of every parameter's shape and initialiser."""
-    d, H, KH, hd, f, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, cfg.d_ff, cfg.num_layers)
-    ll = (L,)
-    attn = {
-        "wq": Spec(ll + (d, H, hd), "dense", d),
-        "wk": Spec(ll + (d, KH, hd), "dense", d),
-        "wv": Spec(ll + (d, KH, hd), "dense", d),
-        "wo": Spec(ll + (H, hd, d), "dense", H * hd),
-    }
-    if cfg.qkv_bias:
-        attn.update(bq=Spec(ll + (H, hd), "zeros"),
-                    bk=Spec(ll + (KH, hd), "zeros"),
-                    bv=Spec(ll + (KH, hd), "zeros"))
-    if cfg.qk_norm:
-        attn.update(q_norm=Spec(ll + (hd,), "ones"),
-                    k_norm=Spec(ll + (hd,), "ones"))
-    if cfg.moe_num_experts:
-        mlp = moe.moe_layout(cfg, ll)
-    elif cfg.mlp_type in ("swiglu", "geglu"):
-        mlp = {"wg": Spec(ll + (d, f), "dense", d),
-               "wu": Spec(ll + (d, f), "dense", d),
-               "wd": Spec(ll + (f, d), "dense", f)}
-    else:
-        mlp = {"w1": Spec(ll + (d, f), "dense", d),
-               "b1": Spec(ll + (f,), "zeros"),
-               "w2": Spec(ll + (f, d), "dense", f),
-               "b2": Spec(ll + (d,), "zeros")}
+    d, ll = cfg.d_model, (cfg.num_layers,)
+    mlp = (moe.moe_layout(cfg, ll) if cfg.moe_num_experts
+           else mlp_layout(cfg, ll))
     layout = {
         "embed": Spec((cfg.vocab_size, d), "embed"),
-        "layers": {"attn": attn, "ln1": _norm_layout(cfg, ll),
-                   "ln2": _norm_layout(cfg, ll),
+        "layers": {"attn": attn_layout(cfg, ll), "ln1": norm_layout(cfg, ll),
+                   "ln2": norm_layout(cfg, ll),
                    "moe" if cfg.moe_num_experts else "mlp": mlp},
-        "final_norm": _norm_layout(cfg),
+        "final_norm": norm_layout(cfg),
     }
     if not cfg.tie_embeddings:
         layout["lm_head"] = Spec((cfg.vocab_size, d), "embed")
@@ -93,51 +98,9 @@ def param_layout(cfg) -> Dict[str, Any]:
     return layout
 
 
-def _map_layout(fn, layout):
-    if isinstance(layout, Spec):
-        return fn(layout)
-    return {k: _map_layout(fn, v) for k, v in layout.items()}
-
-
-def _leaf_dtype(cfg, s: Spec) -> torch.dtype:
-    return getattr(torch, s.dtype) if s.dtype else _dtype(cfg)
-
-
-def param_specs(cfg) -> Params:
-    """The parameter tree as meta tensors: shapes and dtypes, no storage."""
-    return _map_layout(lambda s: torch.empty(
-        s.shape, dtype=_leaf_dtype(cfg, s), device="meta"), param_layout(cfg))
-
-
-def init_params(cfg, *, device="cuda", seed: int = 0) -> Params:
-    """Seeded random weights on ``device``: the reference's distributions
-    (truncated-normal fan-in dense weights, N(0, 0.02) embeddings and image
-    projection, unit norms, zero qkv biases, an fp32 router) drawn from a
-    ``torch.Generator``."""
-    dev = _device.resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def make(s: Spec):
-        dt = _leaf_dtype(cfg, s)
-        if s.init == "ones":
-            return torch.ones(s.shape, dtype=dt, device=dev)
-        if s.init == "zeros":
-            return torch.zeros(s.shape, dtype=dt, device=dev)
-        t = torch.empty(s.shape, dtype=dt, device=dev)
-        if s.init == "embed":
-            return embed_init_(t, gen)
-        return dense_init_(t, s.fan_in, gen)
-
-    return _map_layout(make, param_layout(cfg))
-
-
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s parameters as views into the stacked tree."""
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[i]
-    return pick(params["layers"])
+    return stacked(params["layers"], i)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +136,7 @@ def unembed(cfg, params, h):
     return logits
 
 
-def _rope(cfg, positions):
+def rope_for(cfg, positions):
     """Every layer's RoPE angles for ``positions`` (B, S), or None."""
     if cfg.pos_embedding != "rope":
         return None
@@ -220,7 +183,7 @@ def _full_inputs(cfg, params, batch):
     S = h.shape[1]
     prefix = (cfg.num_image_tokens
               if cfg.num_image_tokens and "image_emb" in batch else 0)
-    rope = _rope(cfg, torch.arange(S, device=h.device)[None, :])
+    rope = rope_for(cfg, torch.arange(S, device=h.device)[None, :])
     return h, rope, prefix
 
 
@@ -241,8 +204,8 @@ def init_cache(cfg, batch_size: int, max_len: int, *, device="cuda"):
     dev = _device.resolve(device)
     shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+    return {"k": torch.zeros(shape, dtype=model_dtype(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=model_dtype(cfg), device=dev),
             "length": torch.zeros((batch_size,), dtype=torch.int32,
                                   device=dev)}
 
@@ -291,7 +254,7 @@ def decode_step(cfg, params, cache, tokens):
     T = tokens.shape[1]
     positions = (cache["length"].long()[:, None]
                  + torch.arange(T, device=tokens.device)[None, :])
-    rope = _rope(cfg, positions)
+    rope = rope_for(cfg, positions)
     h = embed_tokens(cfg, params, tokens.long())
     for i in range(cfg.num_layers):
         h = apply_layer_decode(cfg, layer_params(params, i), h,
@@ -318,8 +281,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *,
     dev = _device.resolve(device)
     shape = (cfg.num_layers, num_blocks + 1, block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-            "v_pages": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    return {"k_pages": torch.zeros(shape, dtype=model_dtype(cfg), device=dev),
+            "v_pages": torch.zeros(shape, dtype=model_dtype(cfg), device=dev)}
 
 
 def _write_slots(tables, positions, valid, trash: int, block_size: int):
@@ -367,7 +330,7 @@ def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):
     tables = tables.to(torch.int32).contiguous()
     _, nb1, bs = pages["k_pages"].shape[:3]
     slots = _write_slots(tables, positions, vmask, nb1 - 1, bs)
-    rope = _rope(cfg, positions)
+    rope = rope_for(cfg, positions)
     h = embed_tokens(cfg, params, tokens.long())
     for i in range(cfg.num_layers):
         h = apply_layer_decode_paged(

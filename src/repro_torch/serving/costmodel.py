@@ -1,6 +1,7 @@
 """Hardware profile and the memory arithmetic the real tier needs: weight
 bytes and how many KV tokens fit beside the weights (the paged pool's size).
-A MoE's weights count every expert, and its fp32 router at 4 bytes.
+A MoE's weights count every expert; every leaf counts at its own width (the
+MoE router and an SSM layer's A_log / D / dt_bias are fp32).
 """
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from dataclasses import dataclass
 import torch
 
 from ..configs.base import ModelConfig
-from ..models import registry, transformer
+from ..models import registry
+from ..models.hybrid import attn_points
 
 
 @dataclass(frozen=True)
@@ -33,8 +35,18 @@ H100_SXM = HardwareProfile(
 
 
 def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
-    """K and V bytes per token across all layers of an attention model."""
-    return 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim \
+    """K and V bytes per token across the layers that keep a KV cache: none
+    for an ssm model (O(1) state), the decoder's for an encoder-decoder,
+    the shared block's application points for a hybrid, every layer
+    otherwise."""
+    if cfg.family == "ssm":
+        return 0
+    layers = cfg.num_layers
+    if cfg.family == "encdec":
+        layers = cfg.dec_layers
+    elif cfg.family == "hybrid":
+        layers = len(attn_points(cfg))
+    return 2 * layers * cfg.num_kv_heads * cfg.resolved_head_dim \
         * dtype_bytes
 
 
@@ -49,12 +61,13 @@ class RooflineCostModel:
 
     def weight_bytes(self, cfg: ModelConfig) -> float:
         """Every parameter at its leaf's own dtype where it has one (the
-        MoE router: fp32), else at ``dtype_bytes``."""
+        MoE router, the SSM's A_log / D / dt_bias: fp32), else at
+        ``dtype_bytes``."""
         if cfg not in self._wcache:
             self._wcache[cfg] = sum(
                 math.prod(s.shape) * (getattr(torch, s.dtype).itemsize
                                       if s.dtype else self.dtype_bytes)
-                for s in registry.leaves(transformer.param_layout(cfg)))
+                for s in registry.leaves(registry.param_layout(cfg)))
         return self._wcache[cfg]
 
     def kv_capacity_tokens(self, target: ModelConfig,

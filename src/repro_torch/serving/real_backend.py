@@ -17,8 +17,9 @@ paged-attention kernel serves plain decode (T=1), speculative verify
 caches in fixed slots: each step gathers the active slots, runs the
 dense-cache spec / AR step and scatters them back, and prefill runs one
 prompt at a time through the full-sequence attention (the flash kernel on
-the card).  It is the tier for models without a paged path and the
-baseline the paged runtime is held equal to.
+the card).  It is the tier for models without a paged path — the ssm
+(mamba2) and hybrid (zamba2) families, whose O(1) state lives in the slots
+— and the baseline the paged runtime is held equal to.
 
 Latencies are host clock around work that ends in a device synchronise —
 what the planner learns from on this tier.
@@ -43,8 +44,9 @@ from .request import Sequence
 
 
 def make_real_backend(target: ModelAPI, draft: ModelAPI, **kw):
-    """The paged runtime when both models have a paged-KV path; dense slot
-    caches otherwise (the paged-only arguments are dropped)."""
+    """The paged runtime when both models have a paged-KV path (attention
+    families); dense slot caches otherwise (the paged-only arguments are
+    dropped)."""
     if target.supports_paged and draft.supports_paged:
         return RealBackend(target, draft, **kw)
     for k in ("block_manager", "num_blocks", "block_size", "cost_model"):
@@ -516,7 +518,14 @@ class DenseSlotBackend:
         a power-of-two bucket with copies of slot 0), runs the dense-cache
         AR / speculative step, and scatters the real rows back;
       * prefill is a one-sequence-at-a-time loop; a draft catch-up
-        re-prefills the draft's whole context (the C_switch cost).
+        re-prefills the draft's whole context (the C_switch cost), counted
+        in ``catchups`` (calls, tokens, seconds).
+
+    The caches are any family's: attention k / v, an SSM's conv / ssm state
+    (rolled back from checkpoints by the speculative step) or a hybrid's
+    both.  Only caches with positions bound a request's length by
+    ``max_seq``.  An encoder-decoder is refused: prompts carry tokens only
+    (the reference's real tier serves no audio).
 
     ``params`` is a (target, draft) pair of parameter trees on ``device``;
     without it both models are initialised from ``seed``.
@@ -526,7 +535,17 @@ class DenseSlotBackend:
                  device="cuda", params: Optional[Tuple[dict, dict]] = None,
                  max_batch: int = 8, max_seq: int = 256, seed: int = 0,
                  sampling: str = "greedy", temperature: float = 1.0):
+        if "encdec" in (target.cfg.family, draft.cfg.family):
+            raise NotImplementedError(
+                "DenseSlotBackend serves token prompts; an encoder-decoder "
+                "needs its encoder input (enc_emb), which requests do not "
+                "carry")
         self.device = _device.resolve(device)
+        # an ssm cache has no position axis: only attention caches bound
+        # the positions a request may reach
+        self.positional = any(m.cfg.family != "ssm"
+                              for m in (target, draft))
+        self.catchups = {"calls": 0, "tokens": 0, "seconds": 0.0}
         self.target = target
         self.draft = draft
         self.max_batch = max_batch
@@ -603,9 +622,11 @@ class DenseSlotBackend:
         if not self.draft_resident:
             return 0.0
         t0 = time.perf_counter()
+        tokens = 0
         for s in seqs:
             if s.delta <= 0:
                 continue
+            tokens += s.delta
             ctx = (list(s.request.prompt_tokens)
                    + self.tokens_out[s.req_id][:-1])
             _, dcache1 = self.draft.prefill(self.dparams, self._prompt(ctx),
@@ -614,13 +635,19 @@ class DenseSlotBackend:
                      self._dev([self.slot_of[s.req_id]]), 1)
             s.delta = 0
         _device.synchronize(self.device)
-        return time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        if tokens:
+            self.catchups["calls"] += 1
+            self.catchups["tokens"] += tokens
+            self.catchups["seconds"] += dt
+        return dt
 
     # ------------------------------------------------------------------
     def hybrid_step(self, chunks, decode: List[Sequence], gamma: int,
                     *, with_draft: bool) -> StepOutcome:
         """Chunked prefill needs the paged RealBackend; the dense slot tier
-        prefills monolithically."""
+        prefills monolithically, so it refuses chunks (build its engine
+        with ``chunk_tokens`` unset)."""
         if chunks:
             raise NotImplementedError(
                 "chunked prefill needs the paged-KV RealBackend — the dense "
@@ -631,13 +658,15 @@ class DenseSlotBackend:
         n = len(seqs)
         bucket = min(bucket_size(n), self.max_batch)
         slots = np.array([self.slot_of[s.req_id] for s in seqs], np.int32)
-        for s in seqs:
-            # materialised tokens + this step's gamma+1 writes
-            need = (s.request.prompt_len + len(self.tokens_out[s.req_id])
-                    + gamma)
-            if need > self.max_seq:
-                raise ValueError(f"request {s.req_id}: {need} positions "
-                                 f"exceed the dense cache's {self.max_seq}")
+        if self.positional:
+            for s in seqs:
+                # materialised tokens + this step's gamma+1 writes
+                need = (s.request.prompt_len
+                        + len(self.tokens_out[s.req_id]) + gamma)
+                if need > self.max_seq:
+                    raise ValueError(f"request {s.req_id}: {need} positions "
+                                     f"exceed the dense cache's "
+                                     f"{self.max_seq}")
         idx_np = np.concatenate([slots, np.zeros(bucket - n, np.int32)])
         idx = self._dev(idx_np).long()
 

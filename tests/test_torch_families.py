@@ -1,8 +1,10 @@
 """The port's MoE and VLM decoders (and the other configs the head_dim-256
 kernels open) against the JAX package's, on bridged fp32 weights at reduced
 size: prefill + decode == forward and the multi-token extension for
-grok-1-314b (logit softcap), paligemma-3b (image prefix), gemma-7b and
-granite-moe-1b-a400m (the cases of tests/test_decode_equivalence.py); paged
+grok-1-314b (logit softcap), paligemma-3b (image prefix), gemma-7b,
+granite-moe-1b-a400m and qwen2-72b (qkv bias, reduced: 145 GB at full
+width does not fit one card) (the cases of
+tests/test_decode_equivalence.py); paged
 == dense for granite (tests/test_paged_backend.py); and greedy engine
 streams of the granite pair under AR, fixed-2 and Nightjar, equal to each
 other and to the JAX RealBackend's (tests/test_spec_engine.py)."""
@@ -33,7 +35,8 @@ from repro_torch.serving.real_backend import RealBackend  # noqa: E402
 from repro_torch.serving.scheduler import ContinuousBatchingScheduler  # noqa: E402
 from repro_torch.serving.workload import tiny_requests  # noqa: E402
 
-FAMS = ["grok-1-314b", "paligemma-3b", "gemma-7b", "granite-moe-1b-a400m"]
+FAMS = ["grok-1-314b", "paligemma-3b", "gemma-7b", "granite-moe-1b-a400m",
+        "qwen2-72b"]
 B, S = 2, 16
 GRANITE = "granite-moe-1b-a400m"
 

@@ -43,13 +43,21 @@ NEW_FAMILY_MODULES = ["repro_torch.models.moe",
                       "repro_torch.configs.granite_moe_1b",
                       "repro_torch.configs.grok1_314b",
                       "repro_torch.configs.paligemma_3b",
-                      "repro_torch.configs.gemma_7b"]
+                      "repro_torch.configs.gemma_7b",
+                      "repro_torch.models.mamba2",
+                      "repro_torch.models.hybrid",
+                      "repro_torch.models.encdec",
+                      "repro_torch.configs.mamba2_780m",
+                      "repro_torch.configs.zamba2_1p2b",
+                      "repro_torch.configs.whisper_medium",
+                      "repro_torch.configs.qwen2_72b"]
 
 
 @pytest.mark.parametrize("name", NEW_FAMILY_MODULES)
 def test_new_family_modules_import_without_jax(name):
-    """The MoE layer and the MoE / VLM configs import with JAX and the
-    reference blocked, and their models build on meta tensors."""
+    """The MoE, SSM, hybrid and encoder-decoder models and their configs
+    import with JAX and the reference blocked, and every config's model
+    builds on meta tensors."""
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -68,13 +68,14 @@ def worker(tree: Path) -> None:
         _, args = cs.paged_timed_case(torch, gen, label, T, ctx)
         times[f"paged {label}"] = cs.cuda_ms(
             torch, lambda: paged_attention(*args), flush=flush, iters=50)
-    for label, B, S, H, KH, D in cs.FLASH_TIMED:
+    for label, B, Sq, Sk, H, KH, D, causal, prefix in cs.FLASH_TIMED:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16) for shape in ((B, S, H, D), (B, S, KH, D),
-                                          (B, S, KH, D)))
+            torch.bfloat16) for shape in ((B, Sq, H, D), (B, Sk, KH, D),
+                                          (B, Sk, KH, D)))
         times[f"flash {label}"] = cs.cuda_ms(
-            torch, lambda: flash_attention(q, k, v, causal=True), flush=flush,
-            iters=50)
+            torch, lambda: flash_attention(q, k, v, causal=causal,
+                                           prefix_len=prefix),
+            flush=flush, iters=50)
     del q, k, v
     for label, m, nb1 in cs.MIG_TIMED:
         pools = cs.pair_pools(torch, gen, nb1)
