@@ -50,7 +50,8 @@ Phases (any failed check raises, and the script exits non-zero):
                mamba2-780m pair (48 + 6 layers) served through
                ``build_real_engine`` → ``DenseSlotBackend`` (no attention:
                no kernel launches), then the draft's prefill at B = 8,
-               512 tokens (a catch-up's work, two SSD chunks);
+               512 tokens (a catch-up's work, two SSD chunks) and 300
+               tokens (a padded tail chunk);
  15. hybrid_serve — the zamba2-1.2b pair (38 + 4 layers) the same way: the
                shared attention block's flash call at six points per
                target prompt;
@@ -61,7 +62,18 @@ Phases (any failed check raises, and the script exits non-zero):
                4 + 4 layers;
  17. ssm_lossless — fp32 cut depth: mamba2 AR == fixed-2 == Nightjar ==
                target-as-draft, zamba2 AR == fixed-2 == Nightjar, through
-               the engine (SSM checkpoint rollback).
+               the engine (SSM checkpoint rollback);
+ 18. disagg_serve — disaggregated serving on phase 3's weights: the
+               serve's eight requests prefill on one replica, their KV
+               blocks travel through host memory (``export_handoff`` ->
+               ``import_handoff``) and a second replica decodes them on
+               the paged-attention kernel; then one 192-token prompt (24
+               blocks); prints each handoff's export / import ms and
+               bytes, the bandwidth beside the simulator's price, the
+               decode replica's tokens/s, and writes the shared trace
+               (span-balanced) to build/traces/ (runs after phase 7);
+ 19. disagg_lossless — fp32 cut depth: under AR and Nightjar, migrated
+               streams equal colocated ones (runs after phase 8).
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
@@ -743,7 +755,7 @@ def phase_serve(torch):
          summary=m.summary())
     del engine
     torch.cuda.empty_cache()
-    return counts, params
+    return counts, params, outs
 
 
 def tree_bytes(tree):
@@ -1363,9 +1375,12 @@ def phase_ssm_serve(torch):
     """The mamba2-780m pair through ``build_real_engine`` (ssm target and
     draft: ``DenseSlotBackend``).  No attention anywhere, so no kernel of
     the port may launch.  Then the draft's ``prefill`` at B = 8 and 512
-    tokens (two SSD chunks, so the inter-chunk recurrence runs): the work
-    of a catch-up, host clock between synchronises, median of five after
-    a warm-up call."""
+    tokens (two SSD chunks, so the inter-chunk recurrence runs) and at 300
+    tokens (above the chunk of 256 and not a multiple of it: the scan pads
+    the tail, ROADMAP C9): the work of a catch-up, host clock between
+    synchronises, median of five after a warm-up call.  The padded length
+    is also held, in fp32 at 2 layers, against the same prefill at a chunk
+    that divides it (100)."""
     from repro_torch import configs
     from repro_torch.models import registry
     counts, fields = serve_pair(torch, MAMBA2)
@@ -1375,20 +1390,30 @@ def phase_ssm_serve(torch):
     api = registry.get_model(dcfg)
     params = api.init(device="cuda", seed=2)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    batch = {"tokens": torch.randint(0, dcfg.vocab_size, (8, 512),
-                                     generator=gen, device="cuda")}
-    api.prefill(params, batch)
-    ts = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lg, cache = api.prefill(params, batch)
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    assert torch.isfinite(lg).all() and torch.isfinite(cache["ssm"]).all()
-    fields["draft_prefill_B8_delta512_ms"] = sorted(ts)[2]
+    for delta in (512, 300):
+        batch = {"tokens": torch.randint(0, dcfg.vocab_size, (8, delta),
+                                         generator=gen, device="cuda")}
+        api.prefill(params, batch)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(params, batch)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        assert torch.isfinite(lg).all() and torch.isfinite(cache["ssm"]).all()
+        fields[f"draft_prefill_B8_delta{delta}_ms"] = sorted(ts)[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cut = dcfg.replace(num_layers=2, dtype="float32")
+    p32 = registry.get_model(cut).init(device="cuda", seed=3)
+    lgs = [registry.get_model(cut.replace(ssm_chunk=c)).prefill(
+        p32, batch)[0] for c in (cut.ssm_chunk, 100)]
+    err = (lgs[0] - lgs[1]).abs().max().item()
+    assert err <= 1e-3, err
+    fields["delta300_padded_vs_chunk100_max_abs_err"] = err
     emit("ssm_serve", **fields)
-    del params, cache
+    del params, cache, p32
     torch.cuda.empty_cache()
     return counts
 
@@ -1565,6 +1590,250 @@ def phase_ssm_lossless(torch):
          requests=8, equal=True, **summary)
 
 # ---------------------------------------------------------------------------
+# phases 18-19: the disaggregated prefill -> decode handoff
+# ---------------------------------------------------------------------------
+
+
+class HandoffClock:
+    """Times ``export_handoff`` on a prefill replica's backend and
+    ``import_handoff`` on a decode replica's (host clock around a
+    synchronise on each side) and counts the bytes each moves.  Takes its
+    wrappers off the backends on exit, so no backend keeps a wrapper of its
+    own bound method."""
+
+    def __init__(self, torch, src_be, dst_be):
+        self.torch, self.src_be, self.dst_be = torch, src_be, dst_be
+        self.export, self.imported = {}, {}   # req_id -> (ms, bytes)
+
+    @staticmethod
+    def payload_bytes(kv):
+        return sum(a.nbytes for pool in ("tkv", "dkv")
+                   for a in kv.get(pool, {}).values())
+
+    def _timed(self, fn, log, kv_of):
+        sync = self.torch.cuda.synchronize
+
+        def wrapper(seq, *args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(seq, *args)
+            sync()
+            log[seq.req_id] = ((time.perf_counter() - t0) * 1e3,
+                               self.payload_bytes(kv_of(out, args)))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        self.src_be.export_handoff = self._timed(
+            self.src_be.export_handoff, self.export, lambda out, a: out)
+        self.dst_be.import_handoff = self._timed(
+            self.dst_be.import_handoff, self.imported,
+            lambda out, a: a[0]["kv"])
+        return self
+
+    def __exit__(self, *exc):
+        del self.src_be.export_handoff, self.dst_be.import_handoff
+
+
+def handoff_run(torch, src, dst, reqs, trace=None, *, max_steps=5000):
+    """The reference's disaggregated flow (tests/test_disagg.py:369-378) on
+    two engines: submit to ``src``, step it, hand every fully prefilled,
+    not yet decoded sequence to ``dst``, then run ``dst`` to the end.  With
+    ``trace`` (one recorder for both engines, as a cluster shares one) each
+    handoff opens the request's ``transfer`` stage on ``src`` as the
+    cluster does; the KV is ready at ``src``'s clock.  Returns ``dst``'s
+    metrics, each payload's ``n_blocks``, the decode run's wall seconds
+    and the kernel launches of ``dst``'s run alone."""
+    for r in reqs:
+        src.submit(r)
+    n_blocks = {}
+    for _ in range(max_steps):
+        if not src.has_work():
+            break
+        src.step()
+        for seq in list(src.scheduler.running):
+            if seq.prompt_remaining == 0 and not seq.done \
+                    and seq.generated == 0:
+                payload = src.extract_for_handoff(seq)
+                n_blocks[seq.req_id] = payload["kv"]["n_blocks"]
+                if trace is not None:
+                    trace.req_stage(seq.req_id, src.clock, "transfer",
+                                    src.replica_id)
+                dst.accept_handoff(seq.request, t_ready=src.clock,
+                                   payload=payload)
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = dst.run([], max_steps=max_steps, record_timeline=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = read_counts()
+    return m, n_blocks, wall, {k: after[k] - before[k] for k in after}
+
+
+def span_balance(trace):
+    """tests/test_observability.py's span balance on a trace: for each
+    finished request, its stage spans sum to its end-to-end latency (to
+    1e-6 s).  Returns the number of requests checked."""
+    subs, ends, spans = {}, {}, {}
+    for ln in trace.jsonl_lines():
+        e = json.loads(ln)
+        rid = e.get("req")
+        if rid is None or e["cat"] != "request":
+            continue
+        if e["ph"] == "X":
+            spans[rid] = spans.get(rid, 0.0) + e["dur"]
+        elif e["name"] == "submit":
+            subs[rid] = e["t"]
+        elif e["name"] == "finished":
+            ends[rid] = e["t"]
+    for rid, t_end in ends.items():
+        e2e = t_end - subs[rid]
+        assert abs(spans[rid] - e2e) <= 1e-6, (rid, spans[rid], e2e)
+    assert not trace.open_spans(), trace.open_spans()
+    return len(ends)
+
+
+def disagg_pair(params, cfg, dcfg, policy, trace=None):
+    """A prefill replica (id 0) and a decode replica (id 1):
+    ``build_real_engine`` on the same weights with a chunk budget of 16
+    (a migration candidate exists only on the chunked path), without the
+    elastic memory manager (its draft offload on one replica would move
+    weights the other still reads) or a prefix cache."""
+    from repro_torch.launch.serve import build_real_engine
+    pair = []
+    for rid in (0, 1):
+        eng = build_real_engine(cfg, dcfg, device="cuda", params=params,
+                                memmgr=False, chunk_tokens=16,
+                                policy=policy, seed=0)
+        eng.replica_id = rid
+        if trace is not None:
+            eng.attach_trace(trace)
+        pair.append(eng)
+    return pair
+
+
+def phase_disagg_serve(torch, params, colocated):
+    """Disaggregated serving of the full-width bf16 paper-7b pair on the
+    serve's weights: the serve's eight requests prefill on one replica,
+    their KV blocks (both pools) travel through host numpy
+    (``export_handoff`` -> ``import_handoff``), and a second replica
+    decodes them on the paged-attention kernel.  Then one 192-token
+    prompt (24 blocks of 8) the same way, large enough to read a
+    bandwidth, printed beside the simulator's price for it under the
+    H100 profile.  Both replicas share one trace recorder; the trace is
+    span-balanced and written under build/traces/."""
+    from repro_torch import configs
+    from repro_torch.serving.costmodel import H100_SXM, RooflineCostModel
+    from repro_torch.serving.observability import TraceRecorder
+    from repro_torch.serving.simulator import SimulatedBackend
+    from repro_torch.serving.workload import tiny_requests
+    cfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
+    dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    trace = TraceRecorder()
+    src, dst = disagg_pair(params, cfg, dcfg, "nightjar", trace)
+    reqs = requests(cfg.vocab_size)
+    with HandoffClock(torch, src.backend, dst.backend) as clock:
+        reset_counts()
+        m, n_blocks, wall, dst_counts = handoff_run(torch, src, dst, reqs,
+                                                    trace)
+        outs = streams(dst, reqs)
+        check_run(m, reqs, outs, cfg.vocab_size)
+        assert all(n > 0 for n in n_blocks.values()), n_blocks
+        assert (dst.handoffs_in, dst.handoffs_refused) == (8, 0), \
+            (dst.handoffs_in, dst.handoffs_refused)
+        long_req = tiny_requests(1, prompt_len=192, output_len=16,
+                                 vocab=cfg.vocab_size, seed=7)[0]
+        long_req.req_id, long_req.arrival = len(reqs), src.clock
+        m_long, nb_long, _, long_dst = handoff_run(torch, src, dst,
+                                                   [long_req], trace)
+        path = read_counts()
+    # the decode replica ran its decode and verify steps on the kernel
+    assert dst_counts["paged_attention"] > 0, dst_counts
+    assert long_dst["paged_attention"] > 0, long_dst
+    assert nb_long[long_req.req_id] == 24, nb_long
+    assert len(m_long.requests) == 1 and dst.handoffs_in == 9
+    balanced = span_balance(trace)
+    assert balanced == 9, balanced
+    out_dir = ROOT / "build" / "traces"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace.export(str(out_dir / "disagg_serve.jsonl"), fmt="jsonl")
+    trace.export(str(out_dir / "disagg_serve.json"), fmt="chrome")
+    per_request = {rid: {"export_ms": clock.export[rid][0],
+                         "import_ms": clock.imported[rid][0],
+                         "bytes": clock.export[rid][1],
+                         "n_blocks": (n_blocks | nb_long)[rid]}
+                   for rid in sorted(clock.export)}
+    big = per_request[long_req.req_id]
+    sim = SimulatedBackend(cfg, dcfg, RooflineCostModel(H100_SXM))
+    equal = sum(a == b for r in reqs
+                for a, b in zip(outs[r.req_id], colocated[r.req_id]))
+    emit("disagg_serve", model="paper-7b full width and depth, bf16, "
+         "prefill replica -> decode replica", handoffs=dst.handoffs_in,
+         handoffs_refused=dst.handoffs_refused, per_request=per_request,
+         long_prompt_tokens=192,
+         export_gb_per_s=big["bytes"] / big["export_ms"] / 1e6,
+         import_gb_per_s=big["bytes"] / big["import_ms"] / 1e6,
+         sim_kv_transfer_ms_h100_sxm=1e3 * sim.kv_transfer_seconds(192),
+         sim_host_link_bw=H100_SXM.host_link_bw,
+         decode_wall_s=wall, decode_output_tokens=m.total_tokens,
+         decode_tokens_per_s=m.total_tokens / wall,
+         decode_spec_steps=m.spec.get("spec_steps", 0),
+         trace_events=len(trace.events),
+         trace_events_by_replica={
+             rid: sum(1 for e in trace.events if e["pid"] == rid)
+             for rid in (0, 1)},
+         span_balanced_requests=balanced,
+         traces=[str((out_dir / n).relative_to(ROOT)) for n in
+                 ("disagg_serve.jsonl", "disagg_serve.json")],
+         tokens_equal_to_colocated_serve=equal,
+         tokens_compared=sum(len(outs[r.req_id]) for r in reqs),
+         launches=path, decode_replica_launches={
+             k: dst_counts[k] + long_dst[k] for k in path})
+    del src, dst
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_disagg_lossless(torch, params):
+    """tests/test_disagg.py's real-tier contract on the card, fp32 with
+    TF32 off at cut depth: under AR and under Nightjar, the streams of
+    requests prefilled on one replica and decoded on another equal a
+    colocated run's, token for token (and AR's)."""
+    from repro_torch.launch.serve import build_real_engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, dcfg = fp32_cut()
+    out = {}
+    for policy in ("ar", "nightjar"):
+        colo = build_real_engine(cfg, dcfg, device="cuda", params=params,
+                                 memmgr=False, chunk_tokens=16,
+                                 policy=policy, seed=0)
+        reqs = requests(cfg.vocab_size)
+        m = colo.run(reqs, max_steps=5000)
+        out[f"{policy} colocated"] = streams(colo, reqs)
+        check_run(m, reqs, out[f"{policy} colocated"], cfg.vocab_size)
+        del colo
+        src, dst = disagg_pair(params, cfg, dcfg, policy)
+        reqs = requests(cfg.vocab_size)
+        reset_counts()
+        m, n_blocks, _, dst_counts = handoff_run(torch, src, dst, reqs)
+        counts = read_counts()
+        out[f"{policy} migrated"] = streams(dst, reqs)
+        check_run(m, reqs, out[f"{policy} migrated"], cfg.vocab_size)
+        assert all(n > 0 for n in n_blocks.values()), n_blocks
+        assert dst.handoffs_in == 8 and dst_counts["paged_attention"] > 0
+        emit("disagg_lossless_run", policy=policy, handoffs=dst.handoffs_in,
+             spec=m.spec_summary(), launches=counts)
+        del src, dst
+    for name in out:
+        assert out[name] == out["ar colocated"], f"fp32 {name} != AR"
+    emit("disagg_lossless", model=f"paper-7b full width, {cfg.num_layers} "
+         f"target + {dcfg.num_layers} draft layers, fp32, TF32 off",
+         requests=8, equal=True, runs=list(out))
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, by_path):
@@ -1610,12 +1879,14 @@ def main() -> int:
     err, attn_rows, mig_rows = phase_kernels(torch)
     flash_err, flash_rows = phase_flash(torch)
     by_path = {}
-    by_path["serve"], full_params = phase_serve(torch)
+    by_path["serve"], full_params, serve_outs = phase_serve(torch)
     elastic = phase_elastic_full(torch, full_params)
     assert elastic["migrate_blocks"] == 1, elastic     # one launch per set
     # the dense path's launches: flash_attention runs there, not on the
     # paged path
     by_path["dense_serve"] = phase_dense_serve(torch, full_params)
+    by_path["disagg_serve"] = phase_disagg_serve(torch, full_params,
+                                                 serve_outs)
     phase_cswitch(torch, full_params[1])
     del full_params
     torch.cuda.empty_cache()
@@ -1634,6 +1905,7 @@ def main() -> int:
     phase_lossless(torch, params)
     phase_elastic(params)
     phase_dense_lossless(torch, params)
+    phase_disagg_lossless(torch, params)
     del params
     torch.cuda.empty_cache()
     phase_moe_lossless(torch)

@@ -110,18 +110,24 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     """Chunked SSD scan.
 
     x (b, l, h, p), dt (b, l, h), A (h,) negative, Bm / Cm (b, l, g, n);
-    returns y (b, l, h, p) fp32 and the final state (b, h, p, n) fp32.  The
-    length must be at most ``chunk`` or a multiple of it (the reference's
-    condition; it asserts, this raises ``ValueError``).  The reference's
-    4-operand einsums are written as pairwise products in a fixed order, so
-    the intermediates' sizes do not depend on a contraction planner."""
+    returns y (b, l, h, p) fp32 and the final state (b, h, p, n) fp32.  A
+    length above ``chunk`` that is not a multiple of it is padded at the
+    tail to one with dt = 0 and x = B = C = 0, which leaves the state
+    unchanged (exp(0 · A) = 1 and no input), and the padded rows of y are
+    dropped; the reference asserts instead (ROADMAP C9).  Lengths the
+    reference accepts take no padding.  The reference's 4-operand einsums
+    are written as pairwise products in a fixed order, so the
+    intermediates' sizes do not depend on a contraction planner."""
     b, l, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     Q = min(chunk, l)
-    nc = l // Q
-    if nc * Q != l:
-        raise ValueError(f"ssd_chunked: sequence length {l} is not a "
-                         f"multiple of the chunk {Q}")
+    pad = -l % Q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (l + pad) // Q
     rep = h // g
 
     xc = x.reshape(b, nc, Q, h, p).float()
@@ -157,7 +163,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     # (4) inter-chunk contribution: C · state, scaled by the decay so far
     y_off = (torch.einsum("bcqhn,bchpn->bcqhp", Cc, prev_states)
              * torch.exp(dA_cs)[..., None])
-    return (y_diag + y_off).reshape(b, l, h, p), carry
+    return (y_diag + y_off).reshape(b, l + pad, h, p)[:, :l], carry
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,19 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s.shape) for s in leaves(param_layout(cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (a MoE counts its top-k experts
+    only)."""
+    total = param_count(cfg)
+    if not cfg.moe_num_experts:
+        return total
+    # subtract the inactive experts' MLP weights
+    per_expert = 3 * cfg.d_model * cfg.d_ff
+    inactive = (cfg.moe_num_experts - cfg.moe_top_k) * per_expert \
+        * cfg.num_layers
+    return total - inactive
+
+
 def tree_to(params, device) -> dict:
     """Copy a parameter tree to ``device`` (draft offload / reload)."""
     return {k: tree_to(v, device) if isinstance(v, dict)

@@ -4,15 +4,19 @@ The driver couples the four paper components exactly as Figure 4:
   Scheduler (continuous batching)  ->  Planner (MAB, batch size as context)
   ->  Execution (AR step | speculative step)  ->  Elastic Memory Manager.
 
-Backends (real_backend.py):
-  * RealBackend — PyTorch execution over a paged-KV runtime (zero-copy
-    block-table indexing, chunked prefill via hybrid_step), on the GPU
-    through the package's CUDA kernels.
-  * DenseSlotBackend — dense slot caches, monolithic prefill one prompt at
-    a time through the flash-attention kernel.
+Backends:
+  * SimulatedBackend (simulator.py) — analytical roofline latencies; the
+    paper-scale simulated tier.
+  * RealBackend (real_backend.py) — PyTorch execution over a paged-KV
+    runtime (zero-copy block-table indexing, chunked prefill via
+    hybrid_step), on the GPU through the package's CUDA kernels.
+  * DenseSlotBackend (real_backend.py) — dense slot caches, monolithic
+    prefill one prompt at a time through the flash-attention kernel.
 
-Any object with the same methods plugs in: the engine only reads latencies
-and committed-token counts from it.
+Every tier runs the same scheduler, planner and memory-manager objects:
+only the latency source differs.  The optional seams (``import_handoff``,
+``export_handoff``, ``host_transfer_latency``, ...) are looked up with
+``getattr``, so a backend without them plugs in too.
 
 Steppable API (the cluster tier, serving/cluster.py, is built on this):
   * ``submit(request)``      — enqueue a request; it is admitted once the
@@ -38,6 +42,7 @@ Semantics of one engine step (identical to the original monolithic loop):
 from __future__ import annotations
 
 import heapq
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Protocol, Sequence as Seq
 
@@ -130,10 +135,18 @@ class ServingEngine:
         and the seams that emit events below it (scheduler preemptions,
         block-manager spill/restore).  The context closures read the LIVE
         clock/replica-id, so a cluster may attach before assigning replica
-        ids.  ``None`` detaches everything."""
+        ids.  ``None`` detaches everything.  The closures hold the engine
+        weakly: the scheduler and block manager are the engine's own, so a
+        strong reference would make a cycle that keeps the engine, and a
+        real backend's weights, alive after its last user drops it."""
         self.trace = trace
-        ctx = (lambda: (self.clock, self.replica_id)) \
-            if trace is not None else None
+        ctx = None
+        if trace is not None:
+            me = weakref.ref(self)
+
+            def ctx():
+                eng = me()
+                return eng.clock, eng.replica_id
         self.scheduler.trace = trace
         self.scheduler.trace_ctx = ctx
         self.scheduler.bm.trace = trace

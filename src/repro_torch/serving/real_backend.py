@@ -474,6 +474,59 @@ class RealBackend:
         return StepOutcome(n_committed=n_committed, latency=latency)
 
     # ------------------------------------------------------------------
+    # disaggregated prefill/decode handoff (physical KV migration)
+    # ------------------------------------------------------------------
+    def export_handoff(self, seq: Sequence) -> dict:
+        """Capture a fully-prefilled sequence's physical state for migration
+        to a decode replica: both pools' block payloads (the host-offload
+        spill's gather, to host numpy) plus the sampler bookkeeping the
+        decode loop needs (materialised lengths, the first sampled output
+        token, last-token id).  The engine calls it BEFORE it releases the
+        source's block table."""
+        rid = seq.req_id
+        table = list(self.bm.tables.get(rid, ()))
+        out = {
+            "ctx": int(self.tkv.ctx.get(rid, 0)),
+            "dctx": int(self.dkv.ctx.get(rid, 0)),
+            "tokens_out": list(self.tokens_out.get(rid, [])),
+            "last_token": self.last_token.get(rid),
+            "n_blocks": len(table),
+        }
+        if table:
+            out["tkv"] = self.tkv.spill_blocks(table)
+            out["dkv"] = self.dkv.spill_blocks(table)
+        return out
+
+    def import_handoff(self, seq: Sequence, payload: dict) -> None:
+        """Adopt a migrated sequence: scatter the exported block payloads
+        into this replica's freshly allocated blocks (the host-offload
+        restore's scatter) and rebuild the decode bookkeeping, so the next
+        decode step continues exactly as if the sequence had never
+        moved."""
+        kv = payload.get("kv")
+        if not kv:
+            return
+        rid = seq.req_id
+        ctx = int(kv.get("ctx", 0))
+        self._ensure_alloc(rid, max(ctx, 1))
+        table = list(self.bm.tables.get(rid, ()))
+        # the destination table covers exactly the materialised ctx tokens;
+        # a source tail block past ctx (allocation rounding) is never read,
+        # so restoring the common prefix is enough
+        n = min(len(table), int(kv.get("n_blocks", 0)))
+        if n:
+            ids = table[:n]
+            self.tkv.restore_blocks(
+                ids, {k: v[:, :n] for k, v in kv["tkv"].items()})
+            self.dkv.restore_blocks(
+                ids, {k: v[:, :n] for k, v in kv["dkv"].items()})
+        self.tkv.ctx[rid] = ctx
+        self.dkv.ctx[rid] = int(kv.get("dctx", 0))
+        self.tokens_out[rid] = list(kv.get("tokens_out", []))
+        if kv.get("last_token") is not None:
+            self.last_token[rid] = int(kv["last_token"])
+
+    # ------------------------------------------------------------------
     def release(self, seq: Sequence) -> None:
         self.tkv.ctx.pop(seq.req_id, None)
         self.dkv.ctx.pop(seq.req_id, None)

@@ -75,6 +75,37 @@ def test_new_family_modules_import_without_jax(name):
     assert int(out.stdout.split()[-1]) > 0
 
 
+SIM_TIER_MODULES = ["repro_torch.serving.simulator",
+                    "repro_torch.serving.router",
+                    "repro_torch.serving.controlplane",
+                    "repro_torch.serving.cluster",
+                    "repro_torch.serving.faults",
+                    "repro_torch.serving.observability",
+                    "repro_torch.serving.workload",
+                    "repro_torch.serving.costmodel",
+                    "repro_torch.models.registry",
+                    "repro_torch.launch.serve"]
+
+
+@pytest.mark.parametrize("name", SIM_TIER_MODULES)
+def test_sim_tier_modules_load_no_jax_or_repro(name):
+    """The simulated tier's and the fleet layer's modules, and the ones
+    this slice grew, load neither ``jax`` nor any ``repro`` module: after
+    the import, ``sys.modules`` holds none (nothing is blocked, so an
+    indirect import would show)."""
+    code = (
+        "import sys, importlib\n"
+        "importlib.import_module(sys.argv[1])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'repro')]\n"
+        "print(len(bad), bad[:5])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, name], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 []"), out.stdout
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_import_of_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -105,22 +105,69 @@ def test_ssd_chunked_matches_reference(nc, with_init, g):
 
 def test_ssd_chunked_raises_where_reference_asserts():
     """A length above the chunk and not a multiple of it (ROADMAP C9): the
-    reference asserts at 40 with chunk 32, the port raises ValueError
-    naming both; 31 (one short chunk) and 64 (two chunks) pass in both."""
+    reference asserts at 40 with chunk 32; the port pads the tail and
+    gives the reference's result at a chunk that divides 40 (8).  31 (one
+    short chunk) and 64 (two chunks) pass in both, with no padding."""
     rng = np.random.default_rng(0)
 
     def args(n):
         return [rng.normal(size=s).astype(np.float32) for s in
                 ((1, n, 2, 4), (1, n, 2), (2,), (1, n, 1, 3), (1, n, 1, 3))]
     bad = args(40)
+    bad[1] = np.abs(bad[1])
+    bad[2] = -np.abs(bad[2])
     with pytest.raises(AssertionError):
         jmamba2.ssd_chunked(*map(jnp.asarray, bad), chunk=32)
-    with pytest.raises(ValueError, match="length 40 .* chunk 32"):
-        mamba2.ssd_chunked(*map(torch.as_tensor, bad), chunk=32)
+    gy, gst = mamba2.ssd_chunked(*map(torch.as_tensor, bad), chunk=32)
+    wy, wst = jmamba2.ssd_chunked(*map(jnp.asarray, bad), chunk=8)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), atol=2e-5)
+    np.testing.assert_allclose(gst.numpy(), np.asarray(wst), atol=2e-5)
     for n in (31, 64):
         good = args(n)
         jmamba2.ssd_chunked(*map(jnp.asarray, good), chunk=32)
         mamba2.ssd_chunked(*map(torch.as_tensor, good), chunk=32)
+
+
+@pytest.mark.parametrize("l,divisor", [(40, 8), (70, 10)])
+def test_ssd_chunked_pads_tail_to_reference(l, divisor):
+    """C9 repair: at the reduced config's chunk 32, lengths 40 and 70 are
+    padded to 64 and 96 with dt = 0, x = B = C = 0; y and the final state
+    (from an initial state, two groups) equal the reference's scan at a
+    chunk that divides the length, to the fp32 tolerance of 2e-5."""
+    rng = np.random.default_rng(l)
+    b, h, p, g, n = 2, 4, 8, 2, 6
+    x = rng.normal(size=(b, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, l, h)))).astype(np.float32)
+    A = -np.exp(rng.normal(size=(h,))).astype(np.float32)
+    Bm = rng.normal(size=(b, l, g, n)).astype(np.float32)
+    Cm = rng.normal(size=(b, l, g, n)).astype(np.float32)
+    h0 = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    wy, wst = jmamba2.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                                  chunk=divisor, init_state=jnp.asarray(h0))
+    gy, gst = mamba2.ssd_chunked(*map(torch.as_tensor, (x, dt, A, Bm, Cm)),
+                                 chunk=32, init_state=torch.as_tensor(h0))
+    assert gy.shape == (b, l, h, p)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), atol=2e-5)
+    np.testing.assert_allclose(gst.numpy(), np.asarray(wst), atol=2e-5)
+
+
+def test_prefill_40_then_decode_matches_reference_forward(target):
+    """A 40-token mamba2 prefill at chunk 32 (padded: the reference's
+    prefill asserts there), then four decode steps: the logits equal the
+    reference's forward over the 44 tokens at chunk 4, which divides
+    it."""
+    japi, api, jp, tp = target
+    jfwd = jregistry.get_model(japi.cfg.replace(ssm_chunk=4)).forward
+    rng = np.random.default_rng(40)
+    tok = rng.integers(0, api.cfg.vocab_size, size=(B, 44)).astype(np.int32)
+    tl, tc = api.prefill(tp, {"tokens": torch.as_tensor(tok[:, :40])})
+    got = [tl[:, 0].numpy()]
+    for t in range(40, 43):
+        tl, tc = api.decode_step(tp, tc, torch.as_tensor(tok[:, t:t + 1]))
+        got.append(tl[:, 0].numpy())
+    h = jfwd(jp, {"tokens": jnp.asarray(tok)})
+    full = np.asarray(jmamba2._unembed(japi.cfg, jp, h))
+    np.testing.assert_allclose(np.stack(got, 1), full[:, 39:43], atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
