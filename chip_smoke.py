@@ -73,7 +73,28 @@ Phases (any failed check raises, and the script exits non-zero):
                decode replica's tokens/s, and writes the shared trace
                (span-balanced) to build/traces/ (runs after phase 7);
  19. disagg_lossless — fp32 cut depth: under AR and Nightjar, migrated
-               streams equal colocated ones (runs after phase 8).
+               streams equal colocated ones (runs after phase 8);
+ 20. flash_grad — the flash backward kernel (csrc/flash_attention_bwd.cu)
+               against its plain version and the log-sum-exp forward
+               against the plain log-sum-exp, fp32 (TF32 off) and bf16, on
+               FLASH_CASES' D 64 / 128 rows, the two training shapes, a
+               prefix and a non-causal Sq != Sk; timed at the training
+               shapes beside its bound, the plain version and SDPA's
+               backward;
+ 21. train_fp32 — the paper-7b draft at full width and 2 layers, fp32: the
+               train step's loss and gradients with attention through the
+               kernels equal those through the plain version (1e-5, 1e-4
+               of each leaf's norm), and wq / wk / wv get a gradient;
+ 22. train   — the training main path: the full-width, full-depth bf16
+               draft through ``train()``, 2 x 4,096 tokens of SyntheticLM,
+               5 steps, a checkpoint at step 5 under build/, resumed to
+               step 10; per-step loss, grad norm, device and host ms,
+               tokens/s, model-flop share, peak memory, 24 flash forward
+               and backward launches per step, the restored state bit for
+               bit;
+ 23. train_cli — ``python -m repro_torch.launch.train`` on
+               granite-moe-1b-a400m at full width, 3 steps of 2 x 1,024, in
+               a subprocess: exit 0, finite losses, its launches.
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
@@ -98,6 +119,8 @@ CUDA device and the repository's ``src/``; it refuses to run otherwise.
 from __future__ import annotations
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -681,11 +704,13 @@ def streams(engine, reqs):
 
 def _wrappers():
     from repro_torch.kernels.block_migration import migrate_blocks
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.paged_attention import paged_attention
     return {"paged_attention": paged_attention,
             "migrate_blocks": migrate_blocks,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd}
 
 
 def reset_counts():
@@ -1834,9 +1859,393 @@ def phase_disagg_lossless(torch, params):
 
 
 # ---------------------------------------------------------------------------
+# phases 20-23: training
+# ---------------------------------------------------------------------------
+
+# the draft's attention in a training step of 2 x 4,096 tokens, and
+# granite's in the CLI's 2 x 1,024: (B, Sq, Sk, H, KH, D, causal, prefix_len)
+TRAIN_ATTN = (2, 4096, 4096, 14, 2, 64, True, 0)
+GRANITE_TRAIN_ATTN = (2, 1024, 1024, 16, 8, 64, True, 0)
+# flash backward checks: FLASH_CASES' rows at D 64 / 128, the two training
+# shapes, a prefix and a non-causal Sq != Sk
+FLASH_GRAD_CASES = ([c for c in FLASH_CASES if c[5] in (64, 128)]
+                    + [TRAIN_ATTN, GRANITE_TRAIN_ATTN,
+                       (1, 512, 512, 14, 2, 64, True, 300),
+                       (2, 100, 700, 14, 2, 64, False, 0)])
+GRAD_ATOL = 2e-4   # fp32: a gradient sums over every key (forward: 2e-5)
+GRAD_REL = 1e-2    # bf16: ||kernel - plain|| / ||plain||
+LSE_ATOL = 2e-5
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+CLI_ARGS = ["--arch", GRANITE, "--steps", "3", "--batch", "2", "--seq",
+            "1024"]
 
 
-def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, by_path):
+def flash_bwd_bound(B, S, H, KH, D, es):
+    """Least time of the causal backward: 2.5 times the forward's flops (4 D
+    per visible (query, key) pair and head) over the bf16 peak, against q,
+    k, v, o, dO and the log-sum-exp read once and dq, dk, dv written once
+    over HBM bandwidth."""
+    flops = 2.5 * 4 * B * H * D * (S * (S + 1) // 2)
+    nbytes = es * B * S * D * (4 * H + 4 * KH) + 4 * B * H * S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash_grad(torch):
+    """The backward kernel against ``flash_attention_bwd_ref`` and the
+    log-sum-exp forward against the plain log-sum-exp on FLASH_GRAD_CASES,
+    fp32 (TF32 off) and bf16; then the backward timed at the two training
+    shapes beside its bound, its plain version and SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                         flash_attention_lse_ref)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def inputs(B, Sq, Sk, H, KH, D, dtype):
+        """q, k, v and an incoming gradient dO."""
+        return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+                for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
+                          (B, Sq, H, D))]
+
+    def grads(dtype, B, Sq, Sk, H, KH, D, causal, prefix):
+        q, k, v, do = inputs(B, Sq, Sk, H, KH, D, dtype)
+        o, lse = _forward(q, k, v, causal, prefix, with_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  prefix_len=prefix)
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       prefix_len=prefix)
+        _, want_lse = flash_attention_lse_ref(q, k, v, causal=causal,
+                                              prefix_len=prefix)
+        torch.cuda.synchronize()
+        lse_err = (lse - want_lse).abs().max().item()
+        abs_err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        rel_err = max(((g.float() - w.float()).norm()
+                       / w.float().norm()).item() for g, w in zip(got, want))
+        assert all(torch.isfinite(g).all() for g in got)
+        return (q, k, v, do, o, lse, want), lse_err, abs_err, rel_err
+
+    worst = {}
+    for dtype_name in ("float32", "bfloat16"):
+        w = worst[dtype_name] = {"lse_max_abs_err": 0.0,
+                                 "grad_max_abs_err": 0.0,
+                                 "grad_max_rel_err": 0.0}
+        for case in FLASH_GRAD_CASES:
+            _, lse_err, abs_err, rel_err = grads(getattr(torch, dtype_name),
+                                                 *case)
+            assert lse_err <= LSE_ATOL, (dtype_name, case, lse_err)
+            if dtype_name == "float32":
+                assert abs_err <= GRAD_ATOL, (case, abs_err)
+            else:
+                assert rel_err <= GRAD_REL, (case, rel_err)
+            for key, x in zip(w, (lse_err, abs_err, rel_err)):
+                w[key] = max(w[key], x)
+            torch.cuda.empty_cache()
+    emit("check", kernel="flash_attention_bwd",
+         cases=2 * len(FLASH_GRAD_CASES), lse_atol=LSE_ATOL,
+         grad_atol_float32=GRAD_ATOL, grad_rel_bfloat16=GRAD_REL,
+         worst=worst)
+
+    flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
+    rows = []
+    for label, case in (("draft training step", TRAIN_ATTN),
+                        ("granite training step", GRANITE_TRAIN_ATTN)):
+        B, S, _, H, KH, D, _, _ = case
+        (q, k, v, do, o, lse, want), _, err, rel = grads(torch.bfloat16,
+                                                         *case)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                  retain_graph=True)
+        lib_rel = max(((g.transpose(1, 2).float() - w.float()).norm()
+                       / w.float().norm()).item()
+                      for g, w in zip(lib, want))
+        assert lib_rel <= GRAD_REL, (label, lib_rel)
+        bound, by = flash_bwd_bound(B, S, H, KH, D, q.element_size())
+        kw = dict(causal=True, prefix_len=0)
+        rows.append(dict(
+            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D} causal",
+            max_abs_err=err, rel_err=rel, sdpa_rel_err=lib_rel,
+            ms=cuda_ms(torch, lambda: flash_attention_bwd(
+                q, k, v, o, lse, do, **kw), flush=flush),
+            plain_ms=cuda_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, o, lse, do, **kw), flush=flush, iters=3),
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True),
+                flush=flush),
+            bound_ms=bound, bound_by=by,
+            forward_ms=cuda_ms(torch, lambda: flash_attention(q, k, v, **kw),
+                               flush=flush),
+            forward_with_lse_ms=cuda_ms(torch, lambda: _forward(
+                q, k, v, True, 0, with_lse=True), flush=flush)))
+        del q, k, v, do, o, lse, want, qt, kt, vt, dot, lib_out, lib
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    for row in rows:
+        emit("time", kernel="flash_attention_bwd", **row)
+    err = max(worst["float32"]["grad_max_abs_err"],
+              *(r["max_abs_err"] for r in rows))
+    return err, rows
+
+
+def tree_bits_equal(torch, a, b):
+    """Two trees (nested dicts / NamedTuples of tensors) hold the same
+    bits, leaf by leaf."""
+    from repro_torch.training.checkpoint import flatten
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    fa, fb = flatten(a), flatten(b)
+    return len(fa) == len(fb) and all(
+        x.dtype == y.dtype and torch.equal(x.view(ints[x.dtype]),
+                                           y.view(ints[y.dtype]))
+        for x, y in zip(fa, fb))
+
+
+def phase_train_fp32(torch):
+    """The draft at full width (d 896, vocab 152,064) and 2 layers, fp32 with
+    TF32 off: the train step's loss and gradients with attention through
+    the CUDA kernels, then through the plain version (swapped in for
+    ``models.common.flash_attention``, as ``FlashKinds`` does): loss within
+    1e-5, every gradient leaf within 1e-4 of its own norm, and the q / k / v
+    projections' gradients nonzero (what the wrapper once dropped).  Then
+    one whole ``train_step`` on the kernel path."""
+    from repro_torch import configs
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models import common
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import make_batch_iter
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import loss_and_grads, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_draft_config("paper-7b").replace(num_layers=2,
+                                                       dtype="float32")
+    api, step = make_train_step(cfg, base_lr=1e-3, warmup=10)
+    params = api.init(device="cuda", seed=4)
+    for x in flatten(params):
+        x.requires_grad_(True)
+    batch = make_batch_iter(cfg.vocab_size, 2, 1024, seed=0,
+                            device="cuda")(0)
+    reset_counts()
+    loss_k, grads_k = loss_and_grads(api, params, batch)
+    torch.cuda.synchronize()
+    kernel_counts = read_counts()
+    assert kernel_counts["flash_attention"] == cfg.num_layers, kernel_counts
+    assert kernel_counts["flash_attention_bwd"] == cfg.num_layers, \
+        kernel_counts
+    orig = common.flash_attention
+    common.flash_attention = flash_attention_ref
+    try:
+        reset_counts()
+        loss_p, grads_p = loss_and_grads(api, params, batch)
+        torch.cuda.synchronize()
+        plain_counts = read_counts()
+    finally:
+        common.flash_attention = orig
+    assert not any(plain_counts.values()), plain_counts
+    loss_err = abs(loss_k.item() - loss_p.item())
+    assert loss_err <= 1e-5, loss_err
+    rel = {}
+
+    def walk(gk, gp, path):
+        if isinstance(gk, dict):
+            for key in gk:
+                walk(gk[key], gp[key], f"{path}/{key}")
+            return
+        rel[path] = ((gk - gp).norm() / gp.norm().clamp(min=1e-30)).item()
+    walk(grads_k, grads_p, "")
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 1e-4, (worst, rel[worst])
+    attn = grads_k["layers"]["attn"]
+    norms = {n: attn[n].norm().item() for n in ("wq", "wk", "wv")}
+    assert all(x > 0 for x in norms.values()), norms
+    m, params, opt = step(params, adamw_init(params), batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    emit("train_fp32", model="paper-7b draft, full width, 2 layers, fp32, "
+         "TF32 off, batch 2 x 1,024", loss_kernel=loss_k.item(),
+         loss_plain=loss_p.item(), loss_abs_err=loss_err,
+         grad_leaves=len(rel), worst_grad_leaf=worst,
+         worst_grad_rel_err=rel[worst], attn_grad_norms=norms,
+         kernel_launches=kernel_counts, plain_launches=plain_counts,
+         train_step={"loss": m["loss"].item(),
+                     "grad_norm": m["grad_norm"].item(),
+                     "step": int(opt.step)})
+    del params, opt, grads_k, grads_p, m
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch):
+    """The training main path: the full-width, full-depth bf16 paper-7b
+    draft through ``train()`` on seeded weights and ``SyntheticLM`` batches
+    of 2 x 4,096 tokens: 5 steps with a checkpoint at step 5 under build/,
+    then a resumed run to step 10.  Prints each step's loss, grad norm,
+    device time (CUDA events from the batch's hand-off to the step's end)
+    and host batch time; tokens/s, the model-flop share and peak memory;
+    checks 24 flash forward and 24 backward launches per step and that the
+    resumed run starts from step 5 with the saved state bit for bit."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.data import make_batch_iter
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import train
+    cfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    B, S, steps, half = 2, 4096, 10, 5
+    make = make_batch_iter(cfg.vocab_size, B, S, seed=0, device="cuda")
+    log = {}
+
+    def batch_iter(step):
+        t0 = time.perf_counter()
+        batch = make(step)
+        log[step] = {"batch_ms": (time.perf_counter() - t0) * 1e3,
+                     "start": torch.cuda.Event(enable_timing=True),
+                     "before": read_counts()}
+        log[step]["start"].record()
+        return batch
+
+    def hook(step, metrics):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec = log[step]
+        rec["loss"] = metrics["loss"].item()          # synchronises
+        rec["grad_norm"] = metrics["grad_norm"].item()
+        rec["step_ms"] = rec.pop("start").elapsed_time(end)
+        after, before = read_counts(), rec.pop("before")
+        rec["launches"] = {k: after[k] - before[k] for k in after}
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    kw = dict(batch_iter=batch_iter, seed=0, device="cuda",
+              checkpoint_dir=str(TRAIN_CKPT), checkpoint_every=half,
+              hooks=[hook], base_lr=1e-3, warmup=10)
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    first = train(cfg, steps=half, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    specs = registry.param_specs(cfg)
+    p5, o5, meta = ckpt.restore_latest(
+        str(TRAIN_CKPT), template={"params": specs,
+                                   "opt": adamw_init(specs)},
+        device="cuda")
+    assert meta["step"] == half and int(o5.step) == half, meta
+    restored_exact = tree_bits_equal(
+        torch, {"p": first["params"], "o": first["opt"]},
+        {"p": p5, "o": o5})
+    assert restored_exact
+    first_s = first["elapsed_s"]
+    del first, p5, o5
+    torch.cuda.empty_cache()
+    second = train(cfg, steps=steps, resume=True, **kw)
+    counts = read_counts()
+    assert sorted(log) == list(range(steps)), sorted(log)
+    assert int(second["opt"].step) == steps
+    assert [h["step"] for h in second["history"]] == [steps - 1]
+    per_step = {"flash_attention": cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers,
+                "paged_attention": 0, "migrate_blocks": 0}
+    for i, rec in log.items():
+        assert rec["launches"] == per_step, (i, rec["launches"])
+        assert math.isfinite(rec["loss"]) and math.isfinite(
+            rec["grad_norm"]), (i, rec)
+    step_ms = sorted(rec["step_ms"] for rec in log.values())
+    med_s = step_ms[len(step_ms) // 2] / 1e3
+    tokens = B * S
+    n_params = registry.param_count(cfg)
+    D = cfg.resolved_head_dim
+    attn_fwd = 4 * B * cfg.num_heads * D * (S * (S + 1) // 2) \
+        * cfg.num_layers
+    flops = 6 * n_params * tokens + 3.5 * attn_fwd
+    emit("train", model="paper-7b draft (qwen2.5-0.5B layout), full width "
+         "and depth, bf16, SyntheticLM", layers=cfg.num_layers, batch=B,
+         seq=S, steps=steps, checkpoint_at=half, params=n_params,
+         allocated_before_phase_bytes=allocated_before,
+         steps_log=[{"step": i, **log[i]} for i in range(steps)],
+         median_step_ms=med_s * 1e3,
+         median_batch_ms=sorted(r["batch_ms"] for r in log.values())[
+             steps // 2],
+         tokens_per_s=tokens / med_s,
+         flops_per_step={"6N_tokens": 6 * n_params * tokens,
+                         "attention_fwd_bwd": 3.5 * attn_fwd},
+         model_flop_share=flops / med_s / PEAK_FLOPS["bfloat16"],
+         max_memory_allocated_bytes=peak,
+         wall_s={"steps_0_4_with_checkpoints": first_s,
+                 "steps_5_9_with_checkpoints": second["elapsed_s"]},
+         resumed_from_step=half, restored_bit_exact=restored_exact,
+         launches=counts)
+    del second
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ``python -m repro_torch.launch.train`` as ``-m`` runs it (runpy), then the
+# wrappers' launch counts and the peak memory as one JSON line
+CLI_CODE = """import json, runpy, sys
+sys.argv = ["repro_torch.launch.train"] + sys.argv[1:]
+runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                 alter_sys=True)
+import torch
+from repro_torch.kernels.block_migration import migrate_blocks
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.paged_attention import paged_attention
+print(json.dumps({"launches": {
+    f.__name__: f.launches for f in (paged_attention, migrate_blocks,
+                                     flash_attention, flash_attention_bwd)},
+    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}))
+"""
+
+
+def phase_train_cli(torch):
+    """The training CLI at full width: granite-moe-1b-a400m, 3 steps of
+    2 x 1,024 tokens in a subprocess.  It must exit 0 and print the
+    reference's lines with finite losses; 24 flash forward and backward
+    launches per step."""
+    from repro_torch import configs
+    cfg = configs.get_config(GRANITE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_CODE, *CLI_ARGS],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=900,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = out.stdout.strip().splitlines()
+    stats = json.loads(lines[-1])
+    losses = [float(ln.split()[-1]) for ln in lines[:-2]]
+    assert [ln.split()[:2] for ln in lines[:-2]] == [["step", "0"],
+                                                    ["step", "2"]], lines
+    assert lines[-2].startswith("final loss "), lines
+    assert all(math.isfinite(x) for x in losses), losses
+    launches = stats["launches"]
+    assert launches["flash_attention"] == 3 * cfg.num_layers, launches
+    assert launches["flash_attention_bwd"] == 3 * cfg.num_layers, launches
+    emit("train_cli", command="python -m repro_torch.launch.train "
+         + " ".join(CLI_ARGS), model=f"{GRANITE}, full width and depth, "
+         "bf16", output=lines[:-1], losses=losses, wall_s=wall,
+         max_memory_allocated_bytes=stats["max_memory_allocated_bytes"],
+         launches=launches)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, grad_err,
+                grad_rows, by_path):
     """The contract's kernels line.  ``by_path`` holds each main path's
     launches (counts set to 0 just before the path, read just after);
     ``launches`` is their sum."""
@@ -1863,6 +2272,11 @@ def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, by_path):
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:87", flash_rows,
               flash_err),
+        # no Pallas counterpart: the reference takes jax.grad of its jnp
+        # blockwise_attention
+        entry("flash_attention_bwd",
+              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "src/repro/models/common.py:102", grad_rows, grad_err),
     ], **CARD}
 
 
@@ -1910,9 +2324,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_lossless(torch)
     phase_ssm_lossless(torch)
+    torch.cuda.empty_cache()
+    grad_err, grad_rows = phase_flash_grad(torch)
+    phase_train_fp32(torch)
+    by_path["train"] = phase_train(torch)
+    by_path["train_cli"] = phase_train_cli(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
-                                 flash_rows, by_path)))
+                                 flash_rows, grad_err, grad_rows, by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

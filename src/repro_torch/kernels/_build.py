@@ -32,7 +32,9 @@ SIGNATURES = {
     + [_c_float, _c_int, _c_void_p],
     "migrate_blocks_launch": [_c_void_p, _c_int, _c_void_p, _c_void_p,
                               _c_int, _c_void_p],
-    "flash_attention_launch": [_c_void_p] * 4 + [_c_int] * 8
+    "flash_attention_launch": [_c_void_p] * 5 + [_c_int] * 8
+    + [_c_float, _c_int, _c_void_p],
+    "flash_attention_bwd_launch": [_c_void_p] * 10 + [_c_int] * 8
     + [_c_float, _c_int, _c_void_p],
 }
 

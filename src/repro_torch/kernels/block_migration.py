@@ -100,7 +100,9 @@ def migrate_blocks(pools, src, dst):
     block ids.  Copies in place and returns ``pools``.
 
     CPU pools take the plain version; CUDA pools launch the kernel once for
-    the whole call (and add one to ``migrate_blocks.launches``) or raise."""
+    the whole call (and add one to ``migrate_blocks.launches``) or raise.
+    The copy is invisible to autograd: under grad mode a CUDA pool that
+    requires grad raises rather than be rewritten behind the graph."""
     seq = _check_pools([pools] if isinstance(pools, torch.Tensor)
                        else list(pools))
     s, d = check_plan(src, dst, seq[0].shape[1])
@@ -111,6 +113,10 @@ def migrate_blocks(pools, src, dst):
         return pools
     if dev.type != "cuda":
         raise ValueError(f"migrate_blocks: no kernel for device {dev}")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in seq):
+        raise RuntimeError("migrate_blocks: the CUDA kernel has no backward; "
+                           "call it under torch.no_grad() or on pools that "
+                           "do not require grad")
     if s.size:
         _launch(seq, s, d, inline=s.size <= INLINE_CAP)
         migrate_blocks.launches += 1

@@ -109,8 +109,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
-                  int Sq, int Sk, int H, int KH, int causal, int prefix_len,
-                  float scale) {
+                  float* __restrict__ lse, int Sq, int Sk, int H, int KH,
+                  int causal, int prefix_len, float scale) {
   constexpr int QS = D + 4;     // row strides in floats
   constexpr int KS = D + 1;     // odd: a column read across keys is free
   constexpr int DC = D / 16;    // output columns per thread
@@ -239,21 +239,24 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((static_cast<size_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) o[tx + 16 * c] = acc[i][c] * inv;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KH, int causal, int prefix_len,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KH, int causal,
+           int prefix_len, float scale, cudaStream_t stream) {
   constexpr int smem = sizeof(float) * smem_floats<D>();
   const cudaError_t err = kern::allow_smem<flash_simt_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_simt_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, KH,
-      causal, prefix_len, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, H,
+      KH, causal, prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,6 +273,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;   // query rows per block, 16 per warp
 constexpr int kBK = 64;            // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // a tile of 64 rows of D bf16, each row padded by 16 bytes: the 8 rows an
 // ldmatrix phase reads start 4 banks apart, and every 16-byte chunk stays
@@ -291,39 +295,10 @@ constexpr int kBlockThreads = kThreads * kColSplit<D>;
 using kern::cp_async16;
 using kern::cp_async_commit;
 using kern::cp_async_wait;
-using kern::smem_u32;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
+using kern::ldmatrix_x4;
+using kern::ldmatrix_x4_trans;
+using kern::mma_bf16;
+using kern::pack_bf16;
 
 // rows [row0, row0 + 64) of one head of a (B, S, heads, D) tensor into a
 // padded tile; rows at or past n_rows are zero-filled
@@ -351,8 +326,9 @@ __global__ void __launch_bounds__(kBlockThreads<D>)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                int KH, int causal, int prefix_len, float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Sk, int H, int KH, int causal, int prefix_len,
+                float scale) {
   constexpr int S = Tile<D>::kStride;
   constexpr int E = Tile<D>::kElems;
   constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
@@ -523,6 +499,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     inv[r] = 1.f / fmaxf(lsum, 1e-30f);
+    // the row's natural log-sum-exp of the scaled scores (m is base 2)
+    const int row = row_a + 8 * r;
+    if (lse != nullptr && t4 == 0 && col0 == 0 && row < Sq)
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+          (m[r] + log2f(fmaxf(lsum, 1e-30f))) * kLn2;
   }
   if constexpr (CS > 1) __syncthreads();
   __nv_bfloat16* os = qs + warp * 16 * S;
@@ -549,9 +530,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KH, int causal, int prefix_len,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int H, int KH, int causal,
+           int prefix_len, float scale, cudaStream_t stream) {
   constexpr int smem = Tile<D>::kSmemBytes;
   const cudaError_t err = kern::allow_smem<flash_tc_kernel<D>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -560,8 +541,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KH, causal, prefix_len,
-      scale);
+      static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H, KH, causal,
+      prefix_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -569,14 +550,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           void* out, int B, int Sq, int Sk, int H, int KH, int causal,
-           int prefix_len, float scale, cudaStream_t s) {
+           void* out, float* lse, int B, int Sq, int Sk, int H, int KH,
+           int causal, int prefix_len, float scale, cudaStream_t s) {
   if (dtype == 0)
-    return simt::launch<D>(q, k, v, out, B, Sq, Sk, H, KH, causal,
+    return simt::launch<D>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal,
                            prefix_len, scale, s);
   if (dtype == 1)
-    return tc::launch<D>(q, k, v, out, B, Sq, Sk, H, KH, causal, prefix_len,
-                         scale, s);
+    return tc::launch<D>(q, k, v, out, lse, B, Sq, Sk, H, KH, causal,
+                         prefix_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -584,25 +565,28 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q/out:
 // (B, Sq, H, D); k/v: (B, Sk, KH, D); causal requires Sq == Sk (checked by
-// the wrapper).
+// the wrapper).  lse: null, or (B, H, Sq) float32 that receives each row's
+// natural log-sum-exp of the scaled, masked scores (what the backward,
+// flash_attention_bwd.cu, needs to recompute the probabilities).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Sq, int Sk, int H, int KH, int D,
-                                      int causal, int prefix_len,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq, int Sk, int H, int KH,
+                                      int D, int causal, int prefix_len,
                                       float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 32:
-      return launch<32>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
+      return launch<32>(dtype, q, k, v, out, l, B, Sq, Sk, H, KH, causal,
                         prefix_len, scale, s);
     case 64:
-      return launch<64>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
+      return launch<64>(dtype, q, k, v, out, l, B, Sq, Sk, H, KH, causal,
                         prefix_len, scale, s);
     case 128:
-      return launch<128>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
+      return launch<128>(dtype, q, k, v, out, l, B, Sq, Sk, H, KH, causal,
                          prefix_len, scale, s);
     case 256:
-      return launch<256>(dtype, q, k, v, out, B, Sq, Sk, H, KH, causal,
+      return launch<256>(dtype, q, k, v, out, l, B, Sq, Sk, H, KH, causal,
                          prefix_len, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

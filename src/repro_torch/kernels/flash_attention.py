@@ -1,4 +1,4 @@
-"""Full-sequence (flash) attention: CUDA kernel on the card, plain PyTorch on
+"""Full-sequence (flash) attention: CUDA kernels on the card, plain PyTorch on
 the CPU.
 
 The attention of ``models.common.blockwise_attention``: every prompt of the
@@ -7,6 +7,13 @@ keys j <= i, and the bidirectional prefix j < ``prefix_len``) or non-causal;
 any sequence length; GQA by head index.  The kernels are in
 ``csrc/flash_attention.cu``: bf16 runs on the tensor cores, float32 on the
 CUDA cores (exact to 2e-5 with TF32 off, which the tensor cores are not).
+
+Under autograd (grad mode on and an input that requires grad, as in
+training) the call goes through :class:`FlashAttentionFunction`: the
+forward kernel also writes each row's log-sum-exp, and the backward is the
+hand-written ``csrc/flash_attention_bwd.cu`` (head_dim 64 and 128; bf16 at
+64 on the tensor cores).  Every other call (all of serving) is the plain
+forward launch.
 """
 from __future__ import annotations
 
@@ -17,31 +24,118 @@ from .ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and adds one to ``flash_attention.launches``) or raises."""
+    A CPU tensor takes the plain version (which autograd differentiates); a
+    CUDA tensor launches the kernel (and adds one to
+    ``flash_attention.launches``) or raises.  On a CUDA tensor under
+    autograd the result has a ``grad_fn`` whose backward launches
+    :func:`flash_attention_bwd`; a configuration the backward does not take
+    raises here, before the forward runs."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    prefix_len=prefix_len)
     _check(q, k, v, causal, prefix_len)
-    B, Sq, H, D = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KH, D, int(causal), prefix_len, D ** -0.5, _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _check_bwd(q)
+        return FlashAttentionFunction.apply(q, k, v, causal, prefix_len)
+    return _forward(q, k, v, causal, prefix_len, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The CUDA forward (with its log-sum-exp) and the CUDA backward as one
+    differentiable call.  Saves q, k, v, the output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len):
+        out, lse = _forward(q, k, v, causal, prefix_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.prefix_len = causal, prefix_len
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None
+
+
+def _forward(q, k, v, causal, prefix_len, *, with_lse):
+    """One forward launch -> (out, lse (B, H, Sq) fp32 or None)."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    err = _build.library().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, Sq, Sk, H, KH, D,
+        int(causal), prefix_len, D ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
+                        prefix_len: int = 0):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the
+    incoming gradient ``dout`` of its output ``out``, from the forward's
+    log-sum-exp ``lse`` (B, H, Sq) fp32; each in its input's dtype.
+
+    CUDA tensors only: three launches (delta, dK/dV, dQ) of
+    ``csrc/flash_attention_bwd.cu`` on the current stream of q's device
+    (autograd calls this from its own thread); adds one to
+    ``flash_attention_bwd.launches``.  The plain version is
+    ``ref.flash_attention_bwd_ref``."""
+    _check(q, k, v, causal, prefix_len)
+    _check_bwd(q)
+    dout = dout.contiguous()
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, Sq), torch.float32)):
+        if (t.device != q.device or tuple(t.shape) != tuple(shape)
+                or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(
+                f"flash_attention_bwd: {name} {tuple(t.shape)} {t.dtype} on "
+                f"{t.device} is not a contiguous {tuple(shape)} {dtype} on "
+                f"{q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
+                             f"aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = _build.library().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, D, int(causal),
+        prefix_len, D ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _check_bwd(q):
+    D = q.shape[-1]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention: no backward kernel for head_dim "
+                         f"{D} (the backward takes {BWD_HEAD_DIMS})")
 
 
 def _check(q, k, v, causal, prefix_len):

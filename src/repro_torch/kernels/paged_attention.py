@@ -63,9 +63,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (adds one to ``paged_attention.launches`` and sets
-    ``paged_attention.last_splits``) or raises."""
+    ``paged_attention.last_splits``) or raises.  The kernel has no
+    backward: under autograd with an input that requires grad it raises
+    rather than return a result detached from the graph."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+    if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
+                                    or v_pages.requires_grad):
+        raise RuntimeError("paged_attention: the CUDA kernel has no backward; "
+                           "call it under torch.no_grad() or on tensors "
+                           "that do not require grad")
     squeeze = q.dim() == 3
     q4 = q[:, None] if squeeze else q
     B, T, H, D = q4.shape

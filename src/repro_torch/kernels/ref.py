@@ -65,15 +65,60 @@ def flash_attention_ref(q, k, v, *, causal, prefix_len=0):
     query sees every key, and ``prefix_len`` has no effect.
     """
     B, Sq, H, D = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
-    G = H // KH
-    qg = q.reshape(B, Sq, KH, G, D).float() * (D ** -0.5)
-    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
-    if causal:
-        q_pos = torch.arange(Sq, device=q.device)[:, None]
-        k_pos = torch.arange(Sk, device=q.device)[None, :]
-        mask = (q_pos >= k_pos) | (k_pos < prefix_len)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s, _ = _flash_scores(q, k, causal, prefix_len)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _flash_scores(q, k, causal, prefix_len):
+    """Scaled, masked fp32 scores (B, KH, G, Sq, Sk) of ``flash_attention``,
+    and the mask (Sq, Sk) or None."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KH, H // KH, D).float() * (D ** -0.5)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    if not causal:
+        return s, None
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = (q_pos >= k_pos) | (k_pos < prefix_len)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def flash_attention_lse_ref(q, k, v, *, causal, prefix_len=0):
+    """``flash_attention_ref`` and each row's log-sum-exp of the scaled,
+    masked scores: (out in q's dtype, lse (B, H, Sq) fp32), the pair the
+    CUDA forward writes under autograd."""
+    B, Sq, H, _ = q.shape
+    s, _ = _flash_scores(q, k, causal, prefix_len)
+    return (flash_attention_ref(q, k, v, causal=causal,
+                                prefix_len=prefix_len),
+            torch.logsumexp(s, dim=-1).reshape(B, H, Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal, prefix_len=0):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref``, each in its
+    input's dtype, written out step by step in fp32 as the CUDA backward
+    computes them: P = exp(S - lse) from the forward's log-sum-exp
+    (B, H, Sq), delta = rowsum(dO * O), dV = P^T dO, dP = dO V^T,
+    dS = P * (dP - delta), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), with
+    dK and dV summed over the query heads of each KV head."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = D ** -0.5
+    s, mask = _flash_scores(q, k, causal, prefix_len)
+    p = torch.exp(s - lse.float().reshape(B, KH, G, Sq, 1))
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dog = do.float().reshape(B, Sq, KH, G, D)
+    delta = (dog * o.float().reshape(B, Sq, KH, G, D)).sum(-1)  # (B,Sq,KH,G)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds,
+                      q.float().reshape(B, Sq, KH, G, D)) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

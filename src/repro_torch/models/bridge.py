@@ -6,7 +6,9 @@ layer's ``moe`` tree, a VLM's ``image_proj``, an SSM layer's fp32
 the port keeps the same names and layouts, so the bridge is a dtype cast,
 never a reshape.  The one exception: the reference keeps a hybrid's layers
 as a list (``scan_layers=False``), which the bridge stacks on a leading
-axis as the port holds them.
+axis as the port holds them.  The reference's AdamW state (step, m, v)
+crosses the same way (``opt_state_from_numpy``), and ``params_to_numpy``
+goes back.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ from .. import device as _device
 from .registry import param_specs
 
 
-def params_from_numpy(cfg, tree, *, device="cuda"):
+def params_from_numpy(cfg, tree, *, device="cuda", dtype=None):
     """Nested dicts of numpy arrays -> the port's parameter tree on
     ``device``, each leaf in its own dtype (the config's, or fp32 for the
-    MoE router and the SSM's A_log / D / dt_bias).  A list of per-layer
-    trees is stacked.  Raises on a missing, extra or misshapen leaf."""
+    MoE router and the SSM's A_log / D / dt_bias), or every leaf in
+    ``dtype`` when given.  A list of per-layer trees is stacked.  Raises on
+    a missing, extra or misshapen leaf."""
     dev = _device.resolve(device)
 
     def conv(spec, node, path):
@@ -40,9 +43,32 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
                              f"{tuple(spec.shape)}")
         # numpy has no bfloat16: go through float32, exact for bf16 values
         t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        return t.to(device=dev, dtype=spec.dtype)
+        return t.to(device=dev, dtype=dtype or spec.dtype)
 
     return conv(param_specs(cfg), tree, "")
+
+
+def opt_state_from_numpy(cfg, state, *, device="cuda",
+                         m_dtype=torch.float32, v_dtype=torch.float32):
+    """The reference's ``AdamWState`` (step, m, v) with numpy leaves -> the
+    port's, on ``device``: m and v shaped like the parameters, in
+    ``m_dtype`` / ``v_dtype``, the step a () int32 tensor."""
+    from ..training.optimizer import AdamWState
+    step, m, v = state
+    dev = _device.resolve(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=params_from_numpy(cfg, m, device=dev, dtype=m_dtype),
+        v=params_from_numpy(cfg, v, device=dev, dtype=v_dtype))
+
+
+def params_to_numpy(tree):
+    """The port's nested dicts of tensors -> nested dicts of float32 numpy
+    arrays (exact for bfloat16 values; numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
 
 
 def _stack(trees):

@@ -8,6 +8,8 @@ zamba2-style hybrid and ``encdec`` the whisper-style encoder-decoder.
   forward(params, batch) -> final hidden states (B, S, d)
     (batch["image_emb"] (B, N, d) prefixes a VLM's text; batch["enc_emb"]
     (B, S_enc, d) is an encoder-decoder's input)
+  loss(params, batch) -> (scalar loss, metrics): the streamed
+    cross-entropy of batch["labels"] (B, S_txt), -100 ignored
   init_cache(batch_size, max_len, device=...) -> cache
   prefill(params, batch, max_len) -> (last_logits, cache)
   decode_step(params, cache, tokens) -> (logits, cache)
@@ -26,6 +28,9 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from .. import device as _device
 from ..configs.base import ModelConfig
 from . import encdec, hybrid, mamba2, transformer
@@ -37,6 +42,7 @@ class ModelAPI:
     cfg: ModelConfig
     init: Callable
     forward: Callable
+    loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -53,6 +59,62 @@ FAMILY_MODULES = {"dense": transformer, "moe": transformer,
                   "encdec": encdec}
 
 
+def unembed_table(cfg, params):
+    """The (V, d) unembedding: the embedding when tied (always for an
+    encoder-decoder), else ``lm_head``."""
+    if cfg.family == "encdec" or cfg.tie_embeddings or "lm_head" not in params:
+        return params["embed"]
+    return params["lm_head"]
+
+
+def _chunk_nll(softcap: float, table, h, y):
+    """(summed NLL, count of labels >= 0) of one chunk: h (B, C, d), y
+    (B, C).  The product runs in the model dtype, the softmax in fp32."""
+    logits = (h @ table.t()).float()
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = y >= 0
+    gold = torch.gather(logits, -1, y.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, torch.zeros_like(lse))
+    return nll.sum(), mask.sum()
+
+
+def streamed_xent(cfg, params, hidden, labels):
+    """Chunked softmax cross-entropy: hidden (B, S, d), labels (B, S); label
+    -100 is ignored.  The sequence is cut into ``cfg.xent_chunk`` chunks
+    (the last padded with -100), each unembedded under
+    ``torch.utils.checkpoint``, so no (B, S, V) logits tensor exists in the
+    forward or the backward: a chunk's logits are rebuilt when its gradient
+    is taken."""
+    table = unembed_table(cfg, params)
+    B, S, d = hidden.shape
+    chunk = min(cfg.xent_chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+    tot = cnt = 0
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        s, c = checkpoint(_chunk_nll, cfg.logit_softcap, table,
+                          hidden[:, sl], labels[:, sl], use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / cnt.clamp(min=1)
+
+
+def make_loss(cfg, forward):
+    """``loss(params, batch) -> (loss, {})`` over the family's ``forward``:
+    a VLM given ``image_emb`` drops the image rows before the loss."""
+    def loss(params, batch):
+        hidden = forward(cfg, params, batch)
+        if cfg.family == "vlm" and "image_emb" in batch:
+            hidden = hidden[:, cfg.num_image_tokens:, :]
+        return streamed_xent(cfg, params, hidden, batch["labels"]), {}
+    return loss
+
+
 def get_model(cfg: ModelConfig) -> ModelAPI:
     mod = FAMILY_MODULES[cfg.family]
     paged = {}
@@ -66,6 +128,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         cfg=cfg,
         init=functools.partial(init_params, cfg),
         forward=functools.partial(mod.forward, cfg),
+        loss=make_loss(cfg, mod.forward),
         init_cache=functools.partial(mod.init_cache, cfg),
         prefill=functools.partial(mod.prefill, cfg),
         decode_step=functools.partial(mod.decode_step, cfg),

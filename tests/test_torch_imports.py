@@ -106,6 +106,22 @@ def test_sim_tier_modules_load_no_jax_or_repro(name):
     assert out.stdout.startswith("0 []"), out.stdout
 
 
+TRAINING_MODULES = ["repro_torch.training",
+                    "repro_torch.training.optimizer",
+                    "repro_torch.training.data",
+                    "repro_torch.training.checkpoint",
+                    "repro_torch.training.train_loop",
+                    "repro_torch.launch.train",
+                    "repro_torch.models.bridge"]
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_modules_load_no_jax_or_repro(name):
+    """The training slice's modules load neither ``jax`` nor any ``repro``
+    module (nothing is blocked, so an indirect import would show)."""
+    test_sim_tier_modules_load_no_jax_or_repro(name)
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_import_of_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))

@@ -672,3 +672,120 @@ def test_cuda_flash_attention_head_dim_256_matches_plain(case, dtype):
                                     prefix_len=prefix_len)
     atol = 2e-2 if dtype == "bfloat16" else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The flash backward (csrc/flash_attention_bwd.cu) and autograd
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's flash_grad shapes at small B: (B, Sq, Sk, H, KH, D,
+# causal, prefix_len) — the reference sweep's D 64 / 128 rows, the draft's
+# training heads, granite's, a prefix and a non-causal Sq != Sk
+FLASH_GRAD = [(2, 256, 256, 4, 4, 64, True, 0),
+              (2, 256, 256, 4, 4, 64, False, 0),
+              (1, 128, 128, 8, 2, 128, True, 0),
+              (1, 384, 384, 14, 2, 64, True, 0),
+              (1, 256, 256, 16, 8, 64, True, 0),
+              (1, 200, 200, 28, 4, 128, True, 130),
+              (2, 130, 130, 4, 4, 64, True, 130),
+              (2, 37, 200, 14, 2, 64, False, 0),
+              (1, 200, 37, 28, 4, 128, False, 0)]
+
+
+def _grad_inputs(case, dtype, seed=21):
+    B, Sq, Sk, H, KH, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        getattr(torch, dtype)).cuda()
+        for s in ((B, Sq, H, D), (B, Sk, KH, D), (B, Sk, KH, D),
+                  (B, Sq, H, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_GRAD)
+def test_cuda_flash_lse_and_backward_match_plain(case, dtype):
+    """The forward's log-sum-exp (2e-5) and the backward kernel against
+    ``flash_attention_bwd_ref`` on the same saved tensors: fp32 within 2e-4
+    (a gradient sums over every key), bf16 within 1e-2 relative."""
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
+    _need_cuda()
+    causal, prefix = case[6], case[7]
+    q, k, v, do = _grad_inputs(case, dtype)
+    out, lse = _forward(q, k, v, causal, prefix, with_lse=True)
+    _, want_lse = tref.flash_attention_lse_ref(
+        q, k, v, causal=causal, prefix_len=prefix)
+    n = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                              prefix_len=prefix)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                        prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n + 1
+    torch.testing.assert_close(lse, want_lse, atol=2e-5, rtol=0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=0)
+        else:
+            rel = (g.float() - w.float()).norm() / w.float().norm()
+            assert rel.item() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_blockwise_attention_has_a_kernel_gradient(dtype):
+    """The repair: on the card, attention under autograd has a grad_fn, its
+    forward and backward are the CUDA kernels, and q.grad, k.grad and v.grad
+    match the plain version's autograd gradient."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models.common import blockwise_attention
+    _need_cuda()
+    q, k, v, do = _grad_inputs((2, 130, 130, 14, 2, 64), dtype)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    nf, nb = flash_attention.launches, flash_attention_bwd.launches
+    out = blockwise_attention(q, k, v, causal=True, prefix_len=5)
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        nf + 1, nb + 1)
+    want = torch.autograd.grad(
+        tref.flash_attention_ref(q, k, v, causal=True, prefix_len=5),
+        (q, k, v), do)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        rel = (g.float() - w.float()).norm() / w.float().norm()
+        assert rel.item() <= (1e-5 if dtype == "float32" else 1e-2)
+    with torch.no_grad():   # serving: the plain launch, no graph
+        assert blockwise_attention(q, k, v, causal=True).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_unsupported_head_dims():
+    _need_cuda()
+    for D in (32, 256):
+        q = torch.zeros((1, 16, 4, D), device="cuda", requires_grad=True)
+        k = torch.zeros((1, 16, 2, D), device="cuda")
+        with pytest.raises(ValueError, match="no backward kernel"):
+            flash_attention(q, k, k, causal=True)
+        with torch.no_grad():
+            flash_attention(q, k, k, causal=True)   # forward still serves
+
+
+@pytest.mark.cuda
+def test_cuda_paged_and_migration_wrappers_refuse_a_graph():
+    _need_cuda()
+    arrs = _attn_inputs(0, *((2, 1) + SWEEP[0][1:]))
+    q, kp, vp, tables, lengths = (a.cuda() for a in _torch(arrs,
+                                                           torch.float32))
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_attention(q, kp, vp, tables, lengths)
+    with torch.no_grad():
+        paged_attention(q, kp, vp, tables, lengths)
+    pool = torch.zeros((2, 5, 4), device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        migrate_blocks(pool, [0], [1])
+    with torch.no_grad():
+        migrate_blocks(pool, [0], [1])
