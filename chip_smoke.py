@@ -95,6 +95,26 @@ Phases (any failed check raises, and the script exits non-zero):
  23. train_cli — ``python -m repro_torch.launch.train`` on
                granite-moe-1b-a400m at full width, 3 steps of 2 x 1,024, in
                a subprocess: exit 0, finite losses, its launches.
+ 24. sharded — the sharded path on a one-rank NCCL group and a (1, 1)
+               ("data", "model") mesh, DTensor weights at full width in
+               bf16: the draft's loss and gradients at 2 x 4,096 (fsdp)
+               and the target's dense prefill + 4 decode steps (tp_seq),
+               each within 2e-2 of the unsharded path (each gradient
+               leaf's relative error and the worst leaf printed); the
+               flash forward and backward launches through ``local_map``
+               and each path's step ms (DTensor's host overhead);
+ 25. remat   — the full-width draft's train step at remat none / full /
+               dots: peak memory and median step ms over 5 steps, the
+               losses equal (bf16 full depth 2e-2, fp32 4 layers 1e-6);
+ 26. dryrun  — ``launch/dryrun.py`` in a subprocess on a fake 256-rank
+               process group and the (32, 8) H100 mesh: deepseek-7b
+               train_4k, qwen2-72b prefill_32k and decode_32k,
+               grok-1-314b decode_32k and paper-7b decode_32k
+               speculative; per-device flops, bytes, collectives, peak
+               memory (data-sheet estimates, fake tensors) and wall
+               seconds; then the local counting held on this PyTorch
+               (8 x an (8, 1) fsdp train step's per-device flops equal
+               the unsharded step's within 1 %).
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
@@ -2242,6 +2262,390 @@ def phase_train_cli(torch):
 
 
 # ---------------------------------------------------------------------------
+# distribution and compile-time tooling: sharded, remat, dryrun
+# ---------------------------------------------------------------------------
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def event_ms(torch, fn, iters=3):
+    """(median ms of ``fn()`` under CUDA events over ``iters`` calls after
+    one warm-up, the last result)."""
+    out = fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2], out
+
+
+def _leaf_diffs(torch, got, want, path=""):
+    """{leaf path: (largest |got - want|, that relative to the leaf's
+    largest |want|, entries that differ)} over two trees; DTensors
+    compared whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(want, dict):
+        out = {}
+        for k in want:
+            out.update(_leaf_diffs(torch, got[k], want[k], f"{path}/{k}"))
+        return out
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    d = (got.float() - want.float()).abs()
+    top = d.max().item()
+    return {path: (top, top / max(want.float().abs().max().item(), 1e-30),
+                   int((d > 0).sum().item()))}
+
+
+def _max_diff(torch, got, want):
+    """(largest |got - want| over the leaves of two trees, largest of it
+    relative to its leaf's largest |want|); DTensors compared whole."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(want, dict):
+        pairs = [_max_diff(torch, got[k], want[k]) for k in want]
+        return (max(p[0] for p in pairs), max(p[1] for p in pairs))
+    if isinstance(got, DTensor):
+        got = got.full_tensor()
+    d = (got.float() - want.float()).abs().max().item()
+    return d, d / max(want.float().abs().max().item(), 1e-30)
+
+
+def phase_sharded(torch):
+    """The sharded path on the card: a one-rank NCCL process group and a
+    (1, 1) ("data", "model") mesh; DTensor parameters and inputs through
+    the models' sharding hooks, attention through ``local_map`` onto the
+    flash kernels.  At full width in bf16: the paper-7b draft's loss and
+    gradients at 2 x 4,096 (fsdp specs), and the target's dense prefill of
+    2 x 1,024 tokens + 4 decode steps (tp_seq specs), each against the
+    unsharded path on the same weights and tokens (2e-2, the bf16 kernel
+    tolerance; gradients relative to each leaf's largest entry, printed
+    leaf by leaf with the worst leaf named); the flash
+    forward and backward launches of the sharded path, and each path's
+    step time under CUDA events (the gap is DTensor's host overhead)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import registry
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import loss_and_grads
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        ba = shd.batch_axes(mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def sharded(fn):
+            def run():
+                with implicit_replication(), \
+                        shd.activation_sharding(ba, "model"):
+                    return fn()
+            return run
+
+        # the draft's loss and gradients (fsdp)
+        dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+        dapi = registry.get_model(dcfg)
+        params = dapi.init(device="cuda", seed=0)
+        tok = torch.randint(0, dcfg.vocab_size, (2, 4096), device="cuda",
+                            generator=gen)
+        batch = {"tokens": tok, "labels": tok}
+        plain = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        dparams = tree_map(lambda p: p.requires_grad_(True),
+                           shd.distribute_tree(params, shd.param_specs(
+                               dcfg, params, mesh, weight_mode="fsdp"),
+                               mesh))
+        dbatch = shd.distribute_tree(batch, shd.data_specs(dcfg, batch,
+                                                           mesh), mesh)
+        train_plain = lambda: loss_and_grads(dapi, plain, batch)  # noqa: E731
+        train_sharded = sharded(lambda: loss_and_grads(dapi, dparams,
+                                                       dbatch))
+        loss_p, grads_p = train_plain()
+        reset_counts()
+        loss_s, grads_s = train_sharded()
+        torch.cuda.synchronize()
+        train_counts = read_counts()
+        loss_err = abs(loss_s.full_tensor().item() - loss_p.item())
+        leaf = _leaf_diffs(torch, grads_s, grads_p)
+        worst = max(leaf, key=lambda k: leaf[k][1])
+        grad_abs, grad_rel = leaf[worst][0], leaf[worst][1]
+        assert train_counts["flash_attention"] > 0, train_counts
+        assert train_counts["flash_attention_bwd"] > 0, train_counts
+        assert loss_err <= ATOL["bfloat16"], loss_err
+        assert grad_rel <= ATOL["bfloat16"], (grad_abs, grad_rel)
+        del grads_p, grads_s
+        ms_plain = event_ms(torch, train_plain)[0]
+        ms_sharded = event_ms(torch, train_sharded)[0]
+        emit("sharded", part="draft loss + gradients, fsdp",
+             model="paper-7b draft, full width and depth, bf16",
+             batch=[2, 4096], mesh={"data": 1, "model": 1},
+             backend="nccl", loss_plain=loss_p.item(),
+             loss_sharded=loss_s.full_tensor().item(),
+             loss_abs_err=loss_err, grad_max_abs_err=grad_abs,
+             grad_max_rel_err=grad_rel, grad_worst_leaf=worst,
+             grad_rel_err_by_leaf={k: v[1] for k, v in leaf.items()},
+             grad_entries_differing={k: v[2] for k, v in leaf.items()},
+             tolerance=ATOL["bfloat16"],
+             launches=train_counts, step_ms_plain=ms_plain,
+             step_ms_sharded=ms_sharded,
+             dtensor_overhead_ms=ms_sharded - ms_plain)
+        del plain, dparams, params
+        torch.cuda.empty_cache()
+
+        # the target's dense prefill + 4 decode steps (tp_seq)
+        tcfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
+        tapi = registry.get_model(tcfg)
+        tparams = tapi.init(device="cuda", seed=1)
+        dtp = shd.distribute_tree(tparams, shd.param_specs(
+            tcfg, tparams, mesh, weight_mode="tp_seq"), mesh)
+        prompt = torch.randint(0, tcfg.vocab_size, (2, 1024), device="cuda",
+                               generator=gen)
+        max_len = prompt.shape[1] + 8
+
+        def to_mesh(t):
+            return shd.distribute_tree(t, shd.token_specs(t, mesh), mesh)
+
+        with torch.no_grad():
+            lg_p, cache_p = tapi.prefill(tparams, {"tokens": prompt},
+                                         max_len)
+            toks, want = [lg_p[:, -1].argmax(-1)], [lg_p]
+            for _ in range(4):
+                lg_p, cache_p = tapi.decode_step(tparams, cache_p,
+                                                 toks[-1][:, None])
+                want.append(lg_p)
+                toks.append(lg_p[:, -1].argmax(-1))
+            reset_counts()
+            got = []
+            lg_s, cache_s = sharded(lambda: tapi.prefill(
+                dtp, {"tokens": to_mesh(prompt)}, max_len))()
+            got.append(lg_s)
+            for i in range(4):
+                lg_s, cache_s = sharded(lambda: tapi.decode_step(
+                    dtp, cache_s, to_mesh(toks[i][:, None])))()
+                got.append(lg_s)
+            torch.cuda.synchronize()
+            serve_counts = read_counts()
+            errs = [_max_diff(torch, g, w)[0] for g, w in zip(got, want)]
+            assert serve_counts["flash_attention"] > 0, serve_counts
+            assert max(errs) <= ATOL["bfloat16"], errs
+            ms = {"prefill_plain": event_ms(torch, lambda: tapi.prefill(
+                tparams, {"tokens": prompt}, max_len))[0],
+                "prefill_sharded": event_ms(torch, sharded(
+                    lambda: tapi.prefill(dtp, {"tokens": to_mesh(prompt)},
+                                         max_len)))[0]}
+            _, cache_p = tapi.prefill(tparams, {"tokens": prompt}, max_len)
+            _, cache_s = sharded(lambda: tapi.prefill(
+                dtp, {"tokens": to_mesh(prompt)}, max_len))()
+            ms["decode_plain"] = event_ms(torch, lambda: tapi.decode_step(
+                tparams, cache_p, toks[0][:, None]), iters=4)[0]
+            ms["decode_sharded"] = event_ms(torch, sharded(
+                lambda: tapi.decode_step(dtp, cache_s,
+                                         to_mesh(toks[0][:, None]))),
+                iters=4)[0]
+        emit("sharded", part="target dense prefill + 4 decode steps, tp_seq",
+             model="paper-7b target, full width and depth, bf16",
+             prompt=list(prompt.shape), max_len=max_len,
+             logits_max_abs_err=errs, tolerance=ATOL["bfloat16"],
+             launches=serve_counts, ms=ms,
+             dtensor_overhead_ms={
+                 "prefill": ms["prefill_sharded"] - ms["prefill_plain"],
+                 "decode_step": ms["decode_sharded"] - ms["decode_plain"]})
+        del tparams, dtp, cache_p, cache_s
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}
+
+
+def _remat_steps(torch, cfg, batch, steps):
+    """``steps`` train steps of ``cfg`` from seeded weights on one batch:
+    (losses, step ms under CUDA events, peak bytes)."""
+    from repro_torch.training.optimizer import adamw_init, tree_map
+    from repro_torch.training.train_loop import make_train_step
+    api, step = make_train_step(cfg, base_lr=1e-3, warmup=10)
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      api.init(device="cuda", seed=0))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        m, params, opt = step(params, opt, batch)
+        b.record()
+        losses.append(m["loss"].item())          # synchronises
+        ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return losses, ms, peak
+
+
+def phase_remat(torch):
+    """``cfg.remat`` on the training path: the full-width, full-depth bf16
+    draft's train step (2 x 4,096, the train phase's shape), 5 steps from
+    the same weights at remat none / full / dots: peak
+    ``max_memory_allocated`` and the median step ms; full's and dots'
+    losses within 2e-2 of none's.  Then fp32 (TF32 off) at 4 layers, 2
+    steps: the losses equal none's within 1e-6."""
+    from repro_torch import configs
+    from repro_torch.training.data import make_batch_iter
+    base = configs.get_draft_config("paper-7b")
+    reset_counts()
+    rows, losses = {}, {}
+    for dtype, layers, steps, tol in (("bfloat16", base.num_layers, 5,
+                                       ATOL["bfloat16"]),
+                                      ("float32", 4, 2, 1e-6)):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = base.replace(dtype=dtype, num_layers=layers)
+        batch = make_batch_iter(cfg.vocab_size, 2, 4096, seed=0,
+                                device="cuda")(0)
+        for remat in ("none", "full", "dots"):
+            ls, ms, peak = _remat_steps(torch, cfg.replace(remat=remat),
+                                        batch, steps)
+            losses[dtype, remat] = ls
+            rows[f"{dtype} {layers} layers, remat {remat}"] = {
+                "losses": ls, "median_step_ms": sorted(ms)[len(ms) // 2],
+                "step_ms": ms, "max_memory_allocated_bytes": peak}
+        for remat in ("full", "dots"):
+            err = max(abs(a - b) for a, b in zip(losses[dtype, remat],
+                                                 losses[dtype, "none"]))
+            rows[f"{dtype} {layers} layers, remat {remat}"][
+                "loss_max_abs_err_vs_none"] = err
+            assert err <= tol, (dtype, remat, err)
+    counts = read_counts()
+    assert counts["flash_attention"] > 0, counts
+    assert counts["flash_attention_bwd"] > 0, counts
+    emit("remat", model="paper-7b draft, full width, batch 2 x 4,096",
+         runs=rows, launches=counts)
+    return counts
+
+
+# the dry run's cells on the card: one subprocess with its own fake
+# process group on the (32, 8) production mesh.  qwen2-72b train_4k (eager
+# DTensor dispatch over 8 microbatches of 80 layers, about 3 minutes) is
+# cut to keep the phase near 2 minutes; deepseek-7b train_4k stands for
+# the train cells (the flash backward's custom op and its flop formula on
+# fake CUDA tensors).  The full table runs through the CLI (README)
+DRYRUN_ARGS = [["--arch", "deepseek-7b", "--shape", "train_4k"],
+               ["--arch", "qwen2-72b", "--shape", "prefill_32k"],
+               ["--arch", "qwen2-72b", "--shape", "decode_32k"],
+               ["--arch", "grok-1-314b", "--shape", "decode_32k"],
+               ["--arch", "paper-7b", "--shape", "decode_32k", "--spec"]]
+DRYRUN_CODE = """import json, sys
+from repro_torch.launch import dryrun
+rcs = [dryrun.main(argv + ["--json", f"{sys.argv[2]}/dryrun_{i}.json"])
+       for i, argv in enumerate(json.loads(sys.argv[1]))]
+print(json.dumps({"rcs": rcs}))
+"""
+# the dry run's local counting held on this PyTorch: a reduced deepseek-7b
+# (head_dim 64, so the flash backward takes it) fsdp train step over 8
+# data ranks counts 1/8 of the unsharded step's flops per device, both on
+# fake tensors of argv[1]'s device
+DRYRUN_LOCAL_CODE = """import dataclasses, json, sys
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.models import registry
+from repro_torch.training.optimizer import adamw_init, tree_map
+from repro_torch.training.train_loop import make_train_step
+dev = sys.argv[1]
+shape = ShapeConfig("train_4k", seq_len=256, global_batch=16, kind="train")
+red = configs.reduced(configs.get_config("deepseek-7b")).replace(
+    num_heads=2, num_kv_heads=2)
+over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+        if f.name not in ("name", "remat")}
+with dryrun.fake_world(8):
+    mesh = init_device_mesh(dev, (8, 1), mesh_dim_names=("data", "model"))
+    res = dryrun.run_cell("deepseek-7b", shape, mesh, verbose=False,
+                          cfg_override=over, accum_override=1)
+cfg = configs.get_config("deepseek-7b").replace(**over, remat="full")
+with FakeTensorMode(), torch.device(dev):
+    params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype)
+                      .requires_grad_(True), registry.param_specs(cfg))
+    batch = configs.input_specs(cfg, shape, device=dev)["batch"]
+    _, step = make_train_step(cfg)
+    with FlopCounterMode(display=False) as fc:
+        step(params, adamw_init(params), batch)
+print(json.dumps({"torch": torch.__version__, "device": res["device"],
+                  "weight_mode": res["weight_mode"],
+                  "flops_per_device": res["flops_per_device"],
+                  "unsharded_flops": fc.get_total_flops()}))
+"""
+
+
+def phase_dryrun(torch):
+    """``python -m repro_torch.launch.dryrun``'s cells in a subprocess (its
+    own fake process group of 256 ranks, fake CUDA tensors, nothing on the
+    card): qwen2-72b prefill_32k and decode_32k, grok-1-314b decode_32k
+    and paper-7b decode_32k speculative; each cell's per-device terms
+    (H100 data-sheet estimates, not measurements) and its wall
+    seconds."""
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CODE, json.dumps(DRYRUN_ARGS),
+         str(out_dir)], cwd=ROOT, capture_output=True, text=True,
+        timeout=900, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1])["rcs"] == [0] * len(
+        DRYRUN_ARGS), (out.stdout[-2000:], out.stderr[-4000:])
+    local = subprocess.run(
+        [sys.executable, "-c", DRYRUN_LOCAL_CODE, "cuda"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert local.returncode == 0, local.stderr[-4000:]
+    inv = json.loads(local.stdout.strip().splitlines()[-1])
+    ratio = 8 * inv["flops_per_device"] / inv["unsharded_flops"]
+    assert inv["device"] == "cuda" and inv["weight_mode"] == "fsdp", inv
+    assert abs(ratio - 1) <= 0.01, inv
+    emit("dryrun", part="local counting on this PyTorch: reduced deepseek-7b "
+         "fsdp train over (8, 1), 8 x per-device flops / unsharded",
+         ratio=ratio, tolerance=0.01, torch=inv["torch"],
+         fake_device=inv["device"], weight_mode=inv["weight_mode"],
+         flops_per_device=inv["flops_per_device"],
+         unsharded_flops=inv["unsharded_flops"])
+    keys = ("arch", "shape", "mesh", "weight_mode",
+            "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collective_bytes_by_axis",
+            "collectives", "peak_bytes_per_device",
+            "argument_bytes_per_device", "compute_s", "memory_s",
+            "collective_s", "bottleneck", "roofline_fraction",
+            "useful_flops_ratio", "fits_hbm", "wall_s")
+    cells = 0
+    for i, argv in enumerate(DRYRUN_ARGS):
+        res = json.loads((out_dir / f"dryrun_{i}.json").read_text())
+        assert not res["failures"], res["failures"]
+        for r in res["results"]:
+            assert r["device"] == "cuda" and r["flops_per_device"] > 0, r
+            cells += 1
+            emit("dryrun", spec=" ".join(argv), fake_device=r["device"],
+                 **{k: r[k] for k in keys},
+                 note="H100 SXM data-sheet constants, fake tensors, not "
+                      "measured")
+    emit("dryrun", cells=cells, wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, grad_err,
@@ -2329,6 +2733,9 @@ def main() -> int:
     phase_train_fp32(torch)
     by_path["train"] = phase_train(torch)
     by_path["train_cli"] = phase_train_cli(torch)
+    by_path["sharded"] = phase_sharded(torch)
+    by_path["remat"] = phase_remat(torch)
+    phase_dryrun(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
                                  flash_rows, grad_err, grad_rows, by_path)))

@@ -1,11 +1,14 @@
 """Configuration schema for the Nightjar reproduction framework (a copy of
-the reference's :class:`ModelConfig`).  Configs are frozen dataclasses, so
+the reference's): every architecture is a :class:`ModelConfig`, the four
+assigned input shapes are :class:`ShapeConfig`, and the mesh / sharding
+policy is :class:`ParallelConfig`.  Configs are frozen dataclasses, so
 they hash and can key caches.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -95,3 +98,61 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def replace(self, **kw) -> "ShapeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh & sharding policy: the reference's record, kept as data (its
+    tests compare the two).  Nothing in the port reads it: the dry run
+    picks the weight mode in ``launch.dryrun._weight_mode`` and hands it to
+    ``distributed.sharding.param_specs``; ``cache_specs`` always shards the
+    cache's sequence over ``model``; and ``explicit_decode_collectives``
+    names a module neither package has (ROADMAP C12)."""
+
+    multi_pod: bool = False
+    # logical axis assignment
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: str = "pod"
+    # weight sharding: "tp"   -> weights replicated over data, sharded over model
+    #                  "fsdp" -> weights 2D-sharded over (data, model)
+    weight_mode: str = "fsdp"
+    # KV-cache sequence dim sharded over the model axis (context parallelism)
+    context_parallel: bool = True
+    # explicit decode collectives instead of automatic sharding propagation
+    # (named by the reference; no module of either package implements it)
+    explicit_decode_collectives: bool = False
+
+    def replace(self, **kw) -> "ParallelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# The four assigned shapes ----------------------------------------------------
+TRAIN_4K = ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train")
+PREFILL_32K = ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode")
+LONG_500K = ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode")
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """Assigned shapes applicable to an architecture: long_500k only for
+    the sub-quadratic (ssm / hybrid) families."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.is_subquadratic:
+        out.append(LONG_500K)
+    return tuple(out)

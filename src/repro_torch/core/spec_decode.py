@@ -19,6 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.sharding import full_dim
 from ..models.registry import ModelAPI
 from .verify import verify_greedy, verify_rejection
 
@@ -152,7 +153,7 @@ def make_spec_step(target: ModelAPI, draft: ModelAPI, *,
             logits, dcache = draft.decode_step(dparams, dcache, tok[:, None])
             lg = logits[:, 0] / temperature
             if sampling == "greedy":
-                tok = lg.argmax(dim=-1)
+                tok = full_dim(lg, -1).argmax(dim=-1)
             else:
                 probs.append(torch.softmax(lg, dim=-1))
                 tok = torch.multinomial(probs[-1], 1, generator=gen)[:, 0]

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.sharding import full_dim, whole
+
 
 def _commit(draft_tokens, n_accepted, next_token):
     """(B, g+1) committed tokens: accepted prefix, then next_token, then -1."""
@@ -69,9 +71,11 @@ def verify_greedy(draft_tokens, target_logits):
 
     target_logits: (B, g+1, V).  Deterministic — greedy spec decoding emits
     exactly the target's greedy sequence."""
-    dt = draft_tokens.long()
+    # the (B, g+1) decisions are made whole (DTensor has no rule for a
+    # cumulative product)
+    dt = whole(draft_tokens).long()
     g = dt.shape[1]
-    tgt = target_logits.argmax(dim=-1)                      # (B, g+1)
+    tgt = whole(full_dim(target_logits, -1).argmax(dim=-1))  # (B, g+1)
     n_accepted = torch.cumprod((tgt[:, :g] == dt).long(), dim=1).sum(dim=1)
     next_token = torch.gather(tgt, 1, n_accepted[:, None])[:, 0]
     return {"n_accepted": n_accepted, "next_token": next_token,

@@ -9,15 +9,25 @@ any sequence length; GQA by head index.  The kernels are in
 CUDA cores (exact to 2e-5 with TF32 off, which the tensor cores are not).
 
 Under autograd (grad mode on and an input that requires grad, as in
-training) the call goes through :class:`FlashAttentionFunction`: the
-forward kernel also writes each row's log-sum-exp, and the backward is the
-hand-written ``csrc/flash_attention_bwd.cu`` (head_dim 64 and 128; bf16 at
-64 on the tensor cores).  Every other call (all of serving) is the plain
-forward launch.
+training) the forward kernel also writes each row's log-sum-exp, and the
+backward is the hand-written ``csrc/flash_attention_bwd.cu`` (head_dim 64
+and 128; bf16 at 64 on the tensor cores).  Every other call (all of
+serving) is the plain forward launch.
+
+The launches are three custom ops (``torch.ops.repro_torch.flash_attention``,
+``flash_attention_lse`` with its autograd formula, and
+``flash_attention_bwd``), each with a fake implementation and a flop
+formula: under ``FakeTensorMode`` (the dry run) no pointer reaches a
+launch, and ``torch.utils.flop_counter`` counts the attention.  A DTensor
+never reaches them: ``models.common.blockwise_attention`` hands each rank
+its local (batch, head) shards through ``local_map``, and this wrapper
+raises on a DTensor.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import flash_attention_ref
@@ -35,7 +45,12 @@ def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     ``flash_attention.launches``) or raises.  On a CUDA tensor under
     autograd the result has a ``grad_fn`` whose backward launches
     :func:`flash_attention_bwd`; a configuration the backward does not take
-    raises here, before the forward runs."""
+    raises here, before the forward runs.  A DTensor raises: its local
+    shards are the caller's to pass (``blockwise_attention``)."""
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes local tensors, not DTensors "
+                        "(models.common.blockwise_attention maps a DTensor "
+                        "call onto its local shards)")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    prefix_len=prefix_len)
@@ -43,35 +58,101 @@ def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         _check_bwd(q)
-        return FlashAttentionFunction.apply(q, k, v, causal, prefix_len)
-    return _forward(q, k, v, causal, prefix_len, with_lse=False)[0]
+        return torch.ops.repro_torch.flash_attention_lse(
+            q, k, v, causal, prefix_len)[0]
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, prefix_len)
 
 
 flash_attention.launches = 0
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """The CUDA forward (with its log-sum-exp) and the CUDA backward as one
-    differentiable call.  Saves q, k, v, the output and the log-sum-exp."""
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, prefix_len: int) -> torch.Tensor:
+    return _forward(q, k, v, causal, prefix_len, with_lse=False)[0]
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, prefix_len):
-        out, lse = _forward(q, k, v, causal, prefix_len, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.prefix_len = causal, prefix_len
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         causal=ctx.causal,
-                                         prefix_len=ctx.prefix_len)
-        return dq, dk, dv, None, None
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _flash_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, prefix_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _forward(q, k, v, causal, prefix_len, with_lse=True)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool, prefix_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                               prefix_len=prefix_len)
+
+
+def _lse_like(q):
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+_flash_op.register_fake(lambda q, k, v, causal, prefix_len:
+                        torch.empty_like(q))
+_flash_lse_op.register_fake(lambda q, k, v, causal, prefix_len:
+                            (torch.empty_like(q), _lse_like(q)))
+_flash_bwd_op.register_fake(
+    lambda q, k, v, out, lse, dout, causal, prefix_len:
+    (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, prefix_len = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.prefix_len = causal, prefix_len
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.prefix_len)
+    return dq, dk, dv, None, None
+
+
+_flash_lse_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, prefix_len: int) -> int:
+    """(query, key) pairs a call visits: every pair, or under ``causal``
+    the keys at or before each query's position and the prefix."""
+    if not causal:
+        return Sq * Sk
+    p = min(max(prefix_len, 0), Sk)
+    # query i sees max(i + 1, p) keys
+    below = min(p, Sq)                       # queries with i + 1 <= p
+    return below * p + (Sq * (Sq + 1) - below * (below + 1)) // 2
+
+
+def _fwd_flops(q_shape, k_shape, causal, prefix_len):
+    B, Sq, H, D = q_shape
+    return 4 * B * H * D * attention_pairs(Sq, k_shape[1], causal,
+                                           prefix_len)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
+def _flash_flops(q_shape, k_shape, v_shape, causal, prefix_len, *args,
+                 **kwargs) -> int:
+    return _fwd_flops(q_shape, k_shape, causal, prefix_len)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape,
+                     do_shape, causal, prefix_len, *args, **kwargs) -> int:
+    # S recomputed, dV, dP, dQ, dK: five products where the forward has two
+    return 5 * _fwd_flops(q_shape, k_shape, causal, prefix_len) // 2
 
 
 def _forward(q, k, v, causal, prefix_len, *, with_lse):
     """One forward launch -> (out, lse (B, H, Sq) fp32 or None)."""
+    _check_pointers(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -99,6 +180,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     ``flash_attention_bwd.launches``.  The plain version is
     ``ref.flash_attention_bwd_ref``."""
     _check(q, k, v, causal, prefix_len)
+    _check_pointers(q, k, v)
     _check_bwd(q)
     dout = dout.contiguous()
     B, Sq, H, D = q.shape
@@ -175,6 +257,11 @@ def _check(q, k, v, causal, prefix_len):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+
+
+def _check_pointers(q, k, v):
+    _check(q, k, v, False, 0)
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned (the kernel copies 16-byte chunks)")

@@ -13,7 +13,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from ..distributed.sharding import (align, attention_local_map,
+                                    gather_weights, reduce_partial,
+                                    replicate_dim, shard_decode_scores)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.ref import NEG_INF
 
@@ -115,10 +120,44 @@ def init_layout(cfg, layout, dev: torch.device, seed: int):
 
 
 def stacked(params, i: int):
-    """Entry ``i`` of a tree stacked on a leading axis, as views."""
+    """Entry ``i`` of a tree stacked on a leading axis, as views (a DTensor
+    leaf gathered over the data axes: :func:`gather_weights`)."""
     if isinstance(params, dict):
         return {k: stacked(v, i) for k, v in params.items()}
-    return params[i]
+    return gather_weights(params[i])
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
+def maybe_remat(cfg, fn, *, dots: bool = True):
+    """``fn`` under the reference's ``cfg.remat``: ``"full"`` recomputes
+    the whole call in the backward (``torch.utils.checkpoint``,
+    non-reentrant); ``"dots"`` saves the outputs of the 2-D products
+    (``aten.mm`` / ``aten.addmm``) and recomputes everything else.
+
+    ``"dots"`` is the counterpart of XLA's
+    ``checkpoint_dots_with_no_batch_dims``, which decides per dot on its
+    dimension numbers; here the decision is per aten op, so a product
+    PyTorch runs as ``bmm`` (decode attention's einsums, the MoE experts)
+    is recomputed, and the flash kernel (one custom op) is recomputed
+    whole, where XLA would see its inner dots.  Families whose reference
+    remats only under ``"full"`` pass ``dots=False``."""
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots" and dots:
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +222,11 @@ def apply_rope(x, rope):
 
 
 def head_proj(x, w):
-    """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd)."""
+    """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd).  A DTensor weight
+    sharded on hd (its heads do not divide the model axis) is gathered
+    there first: flattening (H, hd) may shard only H."""
     d, H, hd = w.shape
+    w = replicate_dim(w, 2)
     return (x @ w.reshape(d, H * hd)).view(*x.shape[:-1], H, hd)
 
 
@@ -204,9 +246,14 @@ def qkv_project(cfg, p, x, rope):
 
 
 def attn_output(p, o):
-    """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
+    """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d).  On DTensors the
+    heads' partial sums are reduced here (a row-parallel product), so the
+    residual stream stays whole over ``model``."""
     H, hd, d = p["wo"].shape
-    return o.reshape(*o.shape[:2], H * hd) @ p["wo"].reshape(H * hd, d)
+    # as in head_proj, (H, hd) is flattened with at most H sharded
+    o, wo = replicate_dim(o, 3), replicate_dim(p["wo"], 1)
+    return reduce_partial(o.reshape(*o.shape[:2], H * hd)
+                          @ wo.reshape(H * hd, d))
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +267,14 @@ def blockwise_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
 
     ``prefix_len`` marks a bidirectional prefix (keys before it are visible
     to every query) under ``causal``.  On the card this is the flash kernel;
-    on the CPU its plain version."""
+    on the CPU its plain version.  DTensors go through ``local_map``: each
+    rank attends over its local batch rows and heads with the whole
+    sequence (a sequence-sharded q / k / v is all-gathered first)."""
+    return attention_local_map(_local_attention, q, k, v, causal=causal,
+                               prefix_len=prefix_len)
+
+
+def _local_attention(q, k, v, *, causal: bool, prefix_len: int):
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, prefix_len=prefix_len)
 
@@ -237,12 +291,15 @@ def decode_attention(q, k_cache, v_cache, q_positions):
     B, T, H, D = q.shape
     S, KH = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
-    qg = q.reshape(B, T, KH, G, D) * (D ** -0.5)
+    # a DTensor q's heads gathered: the products flatten (batch, heads)
+    qg = replicate_dim(q, 2).reshape(B, T, KH, G, D) * (D ** -0.5)
     s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k_cache.float())
+    s = shard_decode_scores(s)
     mask = (torch.arange(S, device=q.device)[None, None, :]
             <= q_positions[:, :, None])                          # (B, T, S)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    s = torch.where(align(mask[:, None, None], s), s,
+                    torch.full_like(s, NEG_INF))
+    p = shard_decode_scores(torch.exp(s - s.amax(dim=-1, keepdim=True)))
     l = p.sum(dim=-1)                                            # (B,KH,G,T)
     out = torch.einsum("bkgts,bskd->btkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
@@ -250,29 +307,22 @@ def decode_attention(q, k_cache, v_cache, q_positions):
     return out.reshape(B, T, H, D).to(q.dtype)
 
 
-def cache_write(cache, new, start):
-    """Write ``new`` (B, T, KH, hd) into ``cache`` (B, S, KH, hd) at
-    positions start[b] .. start[b] + T - 1, IN PLACE (``index_put_``; the
-    reference builds a new array).  Every position must lie inside the
-    cache.  Returns ``cache``."""
-    B, T = new.shape[:2]
-    rows = torch.arange(B, device=cache.device)[:, None].expand(B, T)
-    pos = start.long()[:, None] + torch.arange(T, device=cache.device)
-    return cache.index_put_((rows, pos), new.to(cache.dtype))
-
-
 def tied_unembed(params, h):
     """h (B, T, d) @ embed.T -> fp32 logits (B, T, V), the product in the
     model dtype: the unembedding of the ssm, hybrid and encoder-decoder
     families, which always reuse the embedding (the reference's
     ``_unembed_table``)."""
-    return (h @ params["embed"].t()).float()
+    return (h @ gather_weights(params["embed"]).t()).float()
 
 
 def apply_mlp(cfg, p, x):
+    """The MLP; on DTensors its row-parallel output is reduced, as
+    :func:`attn_output`'s."""
     if cfg.mlp_type == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return reduce_partial((F.silu(x @ p["wg"]) * (x @ p["wu"]))
+                              @ p["wd"])
     if cfg.mlp_type == "geglu":
-        return (F.gelu(x @ p["wg"], approximate="tanh")
-                * (x @ p["wu"])) @ p["wd"]
-    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+        return reduce_partial((F.gelu(x @ p["wg"], approximate="tanh")
+                               * (x @ p["wu"])) @ p["wd"])
+    return reduce_partial(F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+                          @ p["w2"]) + p["b2"]

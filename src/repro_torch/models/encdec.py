@@ -21,8 +21,13 @@ from typing import Any, Dict
 import torch
 
 from .. import device as _device
+from ..distributed.sharding import (cache_write, embed_lookup,
+                                    gather_sequence, new_cache,
+                                    replicate_dim, replicate_new_kv,
+                                    shard_activations, shard_kv_cache,
+                                    write_prefix)
 from .common import (Spec, apply_mlp, attn_output, blockwise_attention,
-                     cache_write, decode_attention, head_proj, layer_norm,
+                     decode_attention, head_proj, layer_norm, maybe_remat,
                      model_dtype, qkv_project, stacked, tied_unembed)
 from .transformer import attn_layout, mlp_layout
 
@@ -63,13 +68,20 @@ def encode(cfg, params, enc_emb):
     """Frame embeddings (B, S_enc, d) -> encoder output (B, S_enc, d)."""
     S = enc_emb.shape[1]
     h = enc_emb.to(model_dtype(cfg)) + params["enc_pos"][:S][None]
-    for i in range(cfg.enc_layers):
+
+    def block(hh, i):
         layer = stacked(params["enc_layers"], i)
-        x = _ln(h, layer["ln1"])
+        hh = gather_sequence(hh)
+        x = _ln(hh, layer["ln1"])
         q, k, v = qkv_project(cfg, layer["attn"], x, None)
-        h = h + attn_output(layer["attn"],
-                            blockwise_attention(q, k, v, causal=False))
-        h = h + apply_mlp(cfg, layer["mlp"], _ln(h, layer["ln2"]))
+        hh = hh + attn_output(layer["attn"],
+                              blockwise_attention(q, k, v, causal=False))
+        hh = hh + apply_mlp(cfg, layer["mlp"], _ln(hh, layer["ln2"]))
+        return shard_activations(hh)
+
+    block = maybe_remat(cfg, block, dots=False)
+    for i in range(cfg.enc_layers):
+        h = block(h, i)
     return _ln(h, params["enc_norm"])
 
 
@@ -81,19 +93,21 @@ def _cross_kv(layer, enc_out):
 def _dec_layer_full(cfg, layer, h, enc_out):
     """One decoder layer over the whole sequence: (h, k, v, cross k,
     cross v)."""
+    h = gather_sequence(h)
     x = _ln(h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["self_attn"], x, None)
     h = h + attn_output(layer["self_attn"],
                         blockwise_attention(q, k, v, causal=True))
     qc = head_proj(_ln(h, layer["ln2"]), layer["cross_attn"]["wq"])
-    kc, vc = _cross_kv(layer, enc_out)
+    kc, vc = _cross_kv(layer, gather_sequence(enc_out))
     h = h + attn_output(layer["cross_attn"],
                         blockwise_attention(qc, kc, vc, causal=False))
     return h + apply_mlp(cfg, layer["mlp"], _ln(h, layer["ln3"])), k, v, kc, vc
 
 
 def _dec_inputs(params, tokens, positions):
-    return params["embed"][tokens] + params["dec_pos"][positions]
+    return embed_lookup(params["embed"], tokens) + embed_lookup(
+        params["dec_pos"], positions)
 
 
 def forward(cfg, params, batch):
@@ -103,9 +117,14 @@ def forward(cfg, params, batch):
     tokens = batch["tokens"].long()
     h = _dec_inputs(params, tokens,
                     torch.arange(tokens.shape[1], device=tokens.device)[None])
+
+    def block(hh, i):
+        return shard_activations(_dec_layer_full(
+            cfg, stacked(params["dec_layers"], i), hh, enc_out)[0])
+
+    block = maybe_remat(cfg, block, dots=False)
     for i in range(cfg.dec_layers):
-        h = _dec_layer_full(cfg, stacked(params["dec_layers"], i), h,
-                            enc_out)[0]
+        h = block(h, i)
     return _ln(h, params["dec_norm"])
 
 
@@ -137,20 +156,21 @@ def prefill(cfg, params, batch, max_len: int):
     if S > max_len:
         raise ValueError(f"prefill: {S} prompt positions exceed the cache's "
                          f"{max_len}")
-    cache = init_cache(cfg, B, max_len, enc_out.shape[1],
-                       device=enc_out.device)
+    cache = new_cache(lambda dev: init_cache(cfg, B, max_len,
+                                             enc_out.shape[1], device=dev),
+                      enc_out)
     h = _dec_inputs(params, tokens,
                     torch.arange(S, device=tokens.device)[None])
     for i in range(cfg.dec_layers):
         h, k, v, kc, vc = _dec_layer_full(
             cfg, stacked(params["dec_layers"], i), h, enc_out)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-        cache["cross_k"][i] = kc
-        cache["cross_v"][i] = vc
+        write_prefix(cache["k"][i], k)
+        write_prefix(cache["v"][i], v)
+        cache["cross_k"][i].copy_(kc)
+        cache["cross_v"][i].copy_(vc)
     cache["enc_len"].fill_(enc_out.shape[1])
     cache["length"].fill_(S)
-    return tied_unembed(params, _ln(h[:, -1:], params["dec_norm"])), cache
+    return tied_unembed(params, _ln(replicate_dim(h, 1)[:, -1:], params["dec_norm"])), cache
 
 
 def decode_step(cfg, params, cache, tokens):
@@ -168,10 +188,13 @@ def decode_step(cfg, params, cache, tokens):
         layer = stacked(params["dec_layers"], i)
         x = _ln(h, layer["ln1"])
         q, k, v = qkv_project(cfg, layer["self_attn"], x, None)
-        cache_write(cache["k"][i], k, positions[:, 0])
-        cache_write(cache["v"][i], v, positions[:, 0])
-        h = h + attn_output(layer["self_attn"], decode_attention(
-            q, cache["k"][i], cache["v"][i], positions))
+        start = positions[:, 0]
+        kc = shard_kv_cache(cache_write(cache["k"][i], replicate_new_kv(k),
+                                        start))
+        vc = shard_kv_cache(cache_write(cache["v"][i], replicate_new_kv(v),
+                                        start))
+        h = h + attn_output(layer["self_attn"],
+                            decode_attention(q, kc, vc, positions))
         qc = head_proj(_ln(h, layer["ln2"]), layer["cross_attn"]["wq"])
         h = h + attn_output(layer["cross_attn"], decode_attention(
             qc, cache["cross_k"][i], cache["cross_v"][i], enc_positions))

@@ -17,8 +17,13 @@ from typing import Any, Dict
 
 import torch
 
+from ..distributed.sharding import (cache_write, embed_lookup,
+                                    gather_sequence, new_cache,
+                                    replicate_dim, replicate_new_kv,
+                                    shard_activations, shard_kv_cache,
+                                    tree_gather, write_prefix)
 from .common import (Spec, apply_mlp, attn_output, blockwise_attention,
-                     cache_write, decode_attention, model_dtype,
+                     decode_attention, maybe_remat, model_dtype,
                      qkv_project, rms_norm, stacked, tied_unembed)
 from . import mamba2
 from .transformer import attn_layout, mlp_layout, rope_for
@@ -44,6 +49,8 @@ def param_layout(cfg) -> Params:
 
 
 def _shared_full(cfg, shared, h, emb, rope):
+    shared = tree_gather(shared)
+    h = gather_sequence(h)
     x = rms_norm(h + emb, shared["ln1"])
     q, k, v = qkv_project(cfg, shared["attn"], x, rope)
     h = h + attn_output(shared["attn"],
@@ -55,10 +62,12 @@ def _shared_full(cfg, shared, h, emb, rope):
 def _shared_decode(cfg, shared, h, emb, k_cache, v_cache, positions, rope):
     """The shared block at one application point: its caches (B, S, KH, hd)
     are written IN PLACE at ``positions`` first."""
+    shared = tree_gather(shared)
     x = rms_norm(h + emb, shared["ln1"])
     q, k, v = qkv_project(cfg, shared["attn"], x, rope)
-    cache_write(k_cache, k, positions[:, 0])
-    cache_write(v_cache, v, positions[:, 0])
+    start = positions[:, 0]
+    k_cache = shard_kv_cache(cache_write(k_cache, replicate_new_kv(k), start))
+    v_cache = shard_kv_cache(cache_write(v_cache, replicate_new_kv(v), start))
     h = h + attn_output(shared["attn"],
                         decode_attention(q, k_cache, v_cache, positions))
     x = rms_norm(h, shared["ln2"])
@@ -68,15 +77,22 @@ def _shared_decode(cfg, shared, h, emb, k_cache, v_cache, positions, rope):
 def forward(cfg, params, batch):
     """batch["tokens"] (B, S) -> final hidden states (B, S, d)."""
     tokens = batch["tokens"].long()
-    emb = params["embed"][tokens]
+    emb = embed_lookup(params["embed"], tokens)
     rope = rope_for(cfg, torch.arange(tokens.shape[1],
                                       device=tokens.device)[None, :])
     pts = set(attn_points(cfg))
+
+    def block(hh, i):
+        hh = mamba2.apply_mamba_full(cfg, stacked(params["layers"], i),
+                                     hh)[0]
+        if i in pts:
+            hh = _shared_full(cfg, params["shared"], hh, emb, rope)[0]
+        return shard_activations(hh)
+
+    block = maybe_remat(cfg, block, dots=False)
     h = emb
     for i in range(cfg.num_layers):
-        h = mamba2.apply_mamba_full(cfg, stacked(params["layers"], i), h)[0]
-        if i in pts:
-            h = _shared_full(cfg, params["shared"], h, emb, rope)[0]
+        h = block(h, i)
     return rms_norm(h, params["final_norm"])
 
 
@@ -99,22 +115,24 @@ def prefill(cfg, params, batch, max_len: int):
     if S > max_len:
         raise ValueError(f"prefill: {S} prompt positions exceed the cache's "
                          f"{max_len}")
-    emb = params["embed"][tokens]
+    emb = embed_lookup(params["embed"], tokens)
     rope = rope_for(cfg, torch.arange(S, device=tokens.device)[None, :])
-    cache = init_cache(cfg, B, max_len, device=emb.device)
+    cache = new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev),
+                      emb)
     pts = attn_points(cfg)
     h = emb
     for i in range(cfg.num_layers):
         layer = stacked(params["layers"], i)
-        cache["conv"][i] = mamba2.conv_tail(cfg, layer, h)
-        h, cache["ssm"][i] = mamba2.apply_mamba_full(cfg, layer, h)
+        cache["conv"][i].copy_(mamba2.conv_tail(cfg, layer, h))
+        h, final = mamba2.apply_mamba_full(cfg, layer, h)
+        cache["ssm"][i].copy_(final)
         if i in pts:
             h, k, v = _shared_full(cfg, params["shared"], h, emb, rope)
             app = pts.index(i)
-            cache["attn_k"][app, :, :S] = k
-            cache["attn_v"][app, :, :S] = v
+            write_prefix(cache["attn_k"][app], k)
+            write_prefix(cache["attn_v"][app], v)
     cache["length"].fill_(S)
-    h = rms_norm(h[:, -1:], params["final_norm"])
+    h = rms_norm(replicate_dim(h, 1)[:, -1:], params["final_norm"])
     return tied_unembed(params, h), cache
 
 
@@ -122,7 +140,7 @@ def _step_once(cfg, params, cache, tok_col, positions):
     """One token (B,) at ``positions`` (B, 1) through every layer: logits
     (B, 1, V) and a cache whose conv / ssm are new tensors and whose
     attention caches were written in place."""
-    emb = params["embed"][tok_col][:, None]
+    emb = embed_lookup(params["embed"], tok_col)[:, None]
     rope = rope_for(cfg, positions)
     pts = attn_points(cfg)
     h, convs, ssms = emb, [], []

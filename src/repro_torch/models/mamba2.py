@@ -25,7 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from .. import device as _device
-from .common import Spec, model_dtype, rms_norm, stacked, tied_unembed
+from ..distributed.sharding import (batch_local, embed_lookup,
+                                    gather_sequence, is_dtensor,
+                                    replicate_dim, shard_activations)
+from .common import (Spec, maybe_remat, model_dtype, rms_norm, stacked,
+                     tied_unembed)
 
 Params = Dict[str, Any]
 
@@ -177,7 +181,17 @@ def _dt_A(layer, dt_raw):
 
 
 def apply_mamba_full(cfg, layer, hid, init_state=None):
-    """hid (B, L, d) -> (hid', final SSM state (B, H, P, N) fp32)."""
+    """hid (B, L, d) -> (hid', final SSM state (B, H, P, N) fp32).  On
+    DTensors each rank runs its batch rows with the layer's weights
+    gathered (``batch_local``)."""
+    if is_dtensor(hid):
+        return batch_local(
+            lambda h, s, w: _mamba_full(cfg, w, h, s),
+            (gather_sequence(hid), init_state), layer, 2)
+    return _mamba_full(cfg, layer, hid, init_state)
+
+
+def _mamba_full(cfg, layer, hid, init_state):
     d_in, H, G, N, _ = _dims(cfg)
     u = rms_norm(hid, layer["ln"])
     z, xBC, dt_raw = _split_proj(cfg, layer, u)
@@ -197,7 +211,15 @@ def apply_mamba_full(cfg, layer, hid, init_state=None):
 def apply_mamba_step(cfg, layer, hid, conv_state, ssm_state):
     """hid (B, 1, d); conv_state (B, K-1, conv_dim); ssm_state (B, H, P, N)
     -> (hid', new conv state, new SSM state fp32), both new tensors (the
-    caller's states are never written)."""
+    caller's states are never written).  DTensors: as
+    :func:`apply_mamba_full`."""
+    if is_dtensor(hid):
+        return batch_local(lambda h, c, s, w: _mamba_step(cfg, w, h, c, s),
+                           (hid, conv_state, ssm_state), layer, 3)
+    return _mamba_step(cfg, layer, hid, conv_state, ssm_state)
+
+
+def _mamba_step(cfg, layer, hid, conv_state, ssm_state):
     d_in, H, G, N, _ = _dims(cfg)
     u = rms_norm(hid, layer["ln"])
     z, xBC, dt_raw = _split_proj(cfg, layer, u[:, 0])
@@ -222,6 +244,9 @@ def apply_mamba_step(cfg, layer, hid, conv_state, ssm_state):
 def conv_tail(cfg, layer, h):
     """The last K-1 pre-conv inputs of a prompt (zero-padded on the left
     when it is shorter): the conv state a decode continues from."""
+    if is_dtensor(h):
+        return batch_local(lambda x, w: (conv_tail(cfg, w, x),),
+                           (gather_sequence(h),), layer, 1)[0]
     K = cfg.ssm_conv
     _, xBC, _ = _split_proj(cfg, layer, rms_norm(h, layer["ln"]))
     return F.pad(xBC, (0, 0, max(K - 1 - h.shape[1], 0), 0))[:, -(K - 1):]
@@ -234,9 +259,12 @@ def conv_tail(cfg, layer, h):
 
 def forward(cfg, params, batch):
     """batch["tokens"] (B, S) -> final hidden states (B, S, d)."""
-    h = params["embed"][batch["tokens"].long()]
+    h = embed_lookup(params["embed"], batch["tokens"].long())
+    block = maybe_remat(cfg, lambda hh, i: shard_activations(
+        apply_mamba_full(cfg, stacked(params["layers"], i), hh)[0]),
+        dots=False)
     for i in range(cfg.num_layers):
-        h = apply_mamba_full(cfg, stacked(params["layers"], i), h)[0]
+        h = block(h, i)
     return rms_norm(h, params["final_norm"])
 
 
@@ -260,7 +288,7 @@ def prefill(cfg, params, batch, max_len: int = 0):
     SSM state."""
     tokens = batch["tokens"].long()
     B, S = tokens.shape
-    h = params["embed"][tokens]
+    h = embed_lookup(params["embed"], tokens)
     convs, ssms = [], []
     for i in range(cfg.num_layers):
         layer = stacked(params["layers"], i)
@@ -271,14 +299,14 @@ def prefill(cfg, params, batch, max_len: int = 0):
              "ssm": torch.stack(ssms),
              "length": torch.full((B,), S, dtype=torch.int32,
                                   device=h.device)}
-    h = rms_norm(h[:, -1:], params["final_norm"])
+    h = rms_norm(replicate_dim(h, 1)[:, -1:], params["final_norm"])
     return tied_unembed(params, h), cache
 
 
 def _step_once(cfg, params, conv, ssm, tok_col):
     """One token (B,) through every layer: (logits (B, 1, V), new conv,
     new ssm), the states freshly stacked."""
-    h = params["embed"][tok_col][:, None]
+    h = embed_lookup(params["embed"], tok_col)[:, None]
     convs, ssms = [], []
     for i in range(cfg.num_layers):
         h, cs, ss = apply_mamba_step(cfg, stacked(params["layers"], i), h,

@@ -17,18 +17,30 @@ the drop rule follow the reference step for step.
 
 The reference computes the routing and the expert products outside any
 Pallas kernel, so the port keeps them in plain PyTorch (``topk``,
-``cumsum``, scatter / gather, batched matmuls).  ``shard_moe_slots`` is a
-no-op on one device and has no counterpart.
+``cumsum``, scatter / gather, batched matmuls).
+
+On DTensor inputs the layer runs as one ``local_map`` region: each data
+shard routes, dispatches and combines its own groups (``moe_groups`` a
+multiple of the batch shards, as the dry run sets it), which is where the
+reference's ``shard_moe_slots`` puts the (G, E, C, d) buffers, and the
+experts' ``f`` dim stays sharded over ``model`` (the output is a partial
+sum there).  Where the groups do not align with the batch shards every
+rank computes every group.
 
 Used by grok-1 (8 experts, top-2) and granite-moe (32 experts, top-8).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed.sharding import (axis_sizes, batch_axes, is_dtensor,
+                                    reduce_partial, shard_moe_slots)
 from .common import Spec
 
 
@@ -97,6 +109,8 @@ def _experts(cfg, p, xin):
 
 def apply_moe(cfg, p, x, *, capacity_factor: Optional[float] = None):
     """x (B, S, d) -> ((B, S, d) in x's dtype, aux losses dict)."""
+    if is_dtensor(x):
+        return _apply_moe_sharded(cfg, p, x, capacity_factor)
     B, S, d = x.shape
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     T = B * S
@@ -123,8 +137,8 @@ def apply_moe(cfg, p, x, *, capacity_factor: Optional[float] = None):
 
     xin = torch.gather(xf, 1, table.clamp(min=0).reshape(G, E * C, 1)
                        .expand(G, E * C, d)).reshape(G, E, C, d)
-    xin = xin * valid[..., None].to(xf.dtype)
-    yout = _experts(cfg, p, xin)
+    xin = shard_moe_slots(xin * valid[..., None].to(xf.dtype))
+    yout = shard_moe_slots(_experts(cfg, p, xin))
 
     # combine: each (token, slot)'s expert output, zero where it was dropped
     flat = r.expert * C + r.position.clamp(max=C - 1)            # (G, Tg*k)
@@ -141,3 +155,58 @@ def apply_moe(cfg, p, x, *, capacity_factor: Optional[float] = None):
         dim=(0, 1))
     aux = {"load_balance_loss": E * torch.sum(me * ce)}
     return y.reshape(B, S, d).to(x.dtype), aux
+
+
+def _apply_moe_sharded(cfg, p, x, capacity_factor):
+    """:func:`apply_moe` of DTensors: every data shard runs its own groups
+    locally over its rows of ``x`` (or all groups, replicated, where they
+    do not align), the expert weights all-gathered over ``data`` and kept
+    sharded on ``f`` over ``model``."""
+    mesh = x.device_mesh
+    names, sizes = list(mesh.mesh_dim_names), axis_sizes(mesh)
+    ba = [a for a in batch_axes(mesh) if a in sizes]
+    shards = math.prod(sizes[a] for a in ba)
+    B, S = x.shape[:2]
+    G = groups_for(cfg, B * S)
+    local = G % shards == 0 and B % shards == 0
+    tp = "model" in sizes and cfg.d_ff % sizes["model"] == 0
+
+    def place(batch_dim=None, model=None):
+        out = []
+        for n in names:
+            if n in ba and local and batch_dim is not None:
+                out.append(batch_dim)
+            elif n == "model" and model is not None:
+                out.append(model)
+            else:
+                out.append(Replicate())
+        return out
+
+    split = Shard(0)
+    lcfg = cfg.replace(moe_groups=G // shards if local else G)
+    f_in, f_out = (Shard(2), Shard(1)) if tp else (None, None)
+
+    def body(xl, router, wg, wu, wd):
+        y, aux = apply_moe(lcfg, {"router": router, "wg": wg, "wu": wu,
+                                  "wd": wd}, xl,
+                           capacity_factor=capacity_factor)
+        return y, aux["load_balance_loss"]
+
+    y_place = place(split, Partial() if tp else None)
+    aux_place = place(Partial("avg"))
+    ins = (place(split), place(), place(model=f_in), place(model=f_in),
+           place(model=f_out))
+    # gradients: the weights' sum over the data shards' groups (partial
+    # where the groups are local), and, with f sharded, the partial sums
+    # over model of x's and the router's (each rank sees its f slice)
+    part = Partial() if tp else None
+    grads = (place(split, part), place(Partial(), part),
+             place(Partial(), f_in), place(Partial(), f_in),
+             place(Partial(), f_out))
+    if not local:   # every rank runs every group: no data-axis sums
+        grads = (place(model=part), place(model=part)) + ins[2:]
+    fn = local_map(body, out_placements=(y_place, aux_place),
+                   in_placements=ins, in_grad_placements=grads,
+                   device_mesh=mesh, redistribute_inputs=True)
+    y, aux = fn(x, p["router"], p["wg"], p["wu"], p["wd"])
+    return reduce_partial(y), {"load_balance_loss": aux}

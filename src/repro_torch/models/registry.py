@@ -33,8 +33,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import device as _device
 from ..configs.base import ModelConfig
+from ..distributed.sharding import (gather_weights, label_logits,
+                                    logsumexp, replicate_dim)
 from . import encdec, hybrid, mamba2, transformer
-from .common import init_layout, leaves, specs_of
+from .common import init_layout, leaf_dtype, leaves, specs_of
 
 
 @dataclass(frozen=True)
@@ -73,9 +75,9 @@ def _chunk_nll(softcap: float, table, h, y):
     logits = (h @ table.t()).float()
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = logsumexp(logits)
     mask = y >= 0
-    gold = torch.gather(logits, -1, y.clamp(min=0).long()[..., None])[..., 0]
+    gold = label_logits(logits, y.clamp(min=0).long())
     nll = torch.where(mask, lse - gold, torch.zeros_like(lse))
     return nll.sum(), mask.sum()
 
@@ -87,7 +89,8 @@ def streamed_xent(cfg, params, hidden, labels):
     ``torch.utils.checkpoint``, so no (B, S, V) logits tensor exists in the
     forward or the backward: a chunk's logits are rebuilt when its gradient
     is taken."""
-    table = unembed_table(cfg, params)
+    table = gather_weights(unembed_table(cfg, params))
+    hidden = replicate_dim(hidden, 1)   # chunks slice the sequence
     B, S, d = hidden.shape
     chunk = min(cfg.xent_chunk, S)
     n = -(-S // chunk)
@@ -157,6 +160,12 @@ def param_count(cfg: ModelConfig) -> int:
     """Parameter count from the port's own parameter shapes (no storage);
     a MoE counts every expert."""
     return sum(math.prod(s.shape) for s in leaves(param_layout(cfg)))
+
+
+def param_bytes(cfg: ModelConfig) -> int:
+    """Bytes of the parameters, each leaf at its own dtype's width."""
+    return sum(math.prod(s.shape) * torch.empty((), dtype=leaf_dtype(cfg, s))
+               .element_size() for s in leaves(param_layout(cfg)))
 
 
 def active_param_count(cfg: ModelConfig) -> int:

@@ -17,7 +17,11 @@ Two serving paths:
   the full-sequence attention (the flash kernel on the card) and
   :func:`decode_step` extends it by T tokens.
 
-:func:`forward` is the full-sequence pass (final hidden states).
+:func:`forward` is the full-sequence pass (final hidden states), each layer
+under ``cfg.remat``.  On DTensor parameters and inputs the full-sequence
+and dense-cache paths take the reference's sharding hooks
+(``distributed/sharding.py``); the paged path takes none, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -26,9 +30,14 @@ from typing import Any, Dict
 import torch
 
 from .. import device as _device
+from ..distributed.sharding import (cache_write, embed_lookup,
+                                    gather_sequence, gather_weights,
+                                    new_cache, replicate_dim,
+                                    replicate_new_kv, shard_activations,
+                                    shard_kv_cache, write_prefix)
 from ..kernels.paged_attention import paged_attention
 from .common import (Spec, apply_mlp, apply_norm, attn_output,
-                     blockwise_attention, cache_write, decode_attention,
+                     blockwise_attention, decode_attention, maybe_remat,
                      model_dtype, qkv_project, rope_angles, stacked)
 from . import moe
 
@@ -109,7 +118,7 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 def embed_tokens(cfg, params, tokens):
-    h = params["embed"][tokens]
+    h = embed_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
@@ -121,7 +130,10 @@ def embed_inputs(cfg, params, batch):
     ``embed_scale`` applies to the text tokens only."""
     h = embed_tokens(cfg, params, batch["tokens"].long())
     if cfg.num_image_tokens and "image_emb" in batch:
-        img = batch["image_emb"].to(h.dtype) @ params["image_proj"]
+        # a DTensor projection's model-sharded columns gathered: the
+        # residual stream keeps d whole
+        img = replicate_dim(batch["image_emb"].to(h.dtype)
+                            @ params["image_proj"], 2)
         h = torch.cat([img, h], dim=1)
     return h
 
@@ -130,7 +142,7 @@ def unembed(cfg, params, h):
     """h (B, T, d) -> fp32 logits (B, T, V).  The product runs in the model
     dtype (a bf16 model rounds its logits to bf16 before the cast)."""
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ table.t()).float()
+    logits = (h @ gather_weights(table).t()).float()
     if cfg.logit_softcap > 0.0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -168,6 +180,7 @@ def apply_layer_full(cfg, layer, h, rope, *, prefix_len: int = 0):
     """Full-sequence (prefill) pass through one block: h (B, S, d) ->
     (h, k, v), with causal attention over the whole sequence and a
     bidirectional prefix of ``prefix_len`` positions."""
+    h = gather_sequence(h)
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
     o = blockwise_attention(q, k, v, causal=True, prefix_len=prefix_len)
@@ -192,9 +205,15 @@ def forward(cfg, params, batch):
     hidden states (B, N + S_txt, d), after the final norm (logits are
     ``unembed`` of them)."""
     h, rope, prefix = _full_inputs(cfg, params, batch)
+
+    def block(hh, i):
+        return shard_activations(apply_layer_full(
+            cfg, layer_params(params, i), hh, rope, prefix_len=prefix)[0])
+
+    block = maybe_remat(cfg, block)
+    h = shard_activations(h)
     for i in range(cfg.num_layers):
-        h = apply_layer_full(cfg, layer_params(params, i), h, rope,
-                             prefix_len=prefix)[0]
+        h = block(h, i)
     return apply_norm(cfg, h, params["final_norm"])
 
 
@@ -221,14 +240,15 @@ def prefill(cfg, params, batch, max_len: int):
     if S > max_len:
         raise ValueError(f"prefill: {S} prompt positions exceed the cache's "
                          f"{max_len}")
-    cache = init_cache(cfg, B, max_len, device=h.device)
+    cache = new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev), h)
     for i in range(cfg.num_layers):
         h, k, v = apply_layer_full(cfg, layer_params(params, i), h, rope,
                                    prefix_len=prefix)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        h = shard_activations(h)
+        write_prefix(cache["k"][i], k)
+        write_prefix(cache["v"][i], v)
     cache["length"].fill_(S)
-    h = apply_norm(cfg, h[:, -1:], params["final_norm"])
+    h = apply_norm(cfg, replicate_dim(h, 1)[:, -1:], params["final_norm"])
     return unembed(cfg, params, h), cache
 
 
@@ -238,8 +258,9 @@ def apply_layer_decode(cfg, layer, h, k_cache, v_cache, positions, rope):
     to all cache slots at or before its position."""
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
-    cache_write(k_cache, k, positions[:, 0])
-    cache_write(v_cache, v, positions[:, 0])
+    start = positions[:, 0]
+    k_cache = shard_kv_cache(cache_write(k_cache, replicate_new_kv(k), start))
+    v_cache = shard_kv_cache(cache_write(v_cache, replicate_new_kv(v), start))
     o = decode_attention(q, k_cache, v_cache, positions)
     h = h + attn_output(layer["attn"], o)
     x = apply_norm(cfg, h, layer["ln2"])

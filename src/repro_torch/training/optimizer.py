@@ -32,15 +32,14 @@ def tree_map(fn, *trees):
 
 def adamw_init(params, *, m_dtype=torch.float32,
                v_dtype=torch.float32) -> AdamWState:
-    """Zero moments shaped like ``params`` (``v_dtype`` bf16 is the
-    reference's memory-fit option for the largest models)."""
+    """Zero moments shaped (and, for DTensors, placed) like ``params``
+    (``v_dtype`` bf16 is the reference's memory-fit option for the largest
+    models)."""
     leaf = next(leaves(params))
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=leaf.device),
-        m=tree_map(lambda p: torch.zeros(p.shape, dtype=m_dtype,
-                                         device=p.device), params),
-        v=tree_map(lambda p: torch.zeros(p.shape, dtype=v_dtype,
-                                         device=p.device), params))
+        m=tree_map(lambda p: torch.zeros_like(p, dtype=m_dtype), params),
+        v=tree_map(lambda p: torch.zeros_like(p, dtype=v_dtype), params))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):

@@ -44,8 +44,8 @@ def make_train_step(cfg, *, base_lr: float = 3e-4, warmup: int = 100,
             loss, grads = loss_and_grads(api, params, batch)
         else:
             loss, grads = 0.0, tree_map(
-                lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                      device=p.device), params)
+                lambda p: torch.zeros_like(p, dtype=accum_dtype,
+                                           requires_grad=False), params)
             for i in range(accum):
                 l, g = loss_and_grads(api, params,
                                       {k: v[i] for k, v in batch.items()})

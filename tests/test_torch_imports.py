@@ -156,3 +156,31 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
                  lambda: params_from_numpy(cfg, {})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+DISTRIBUTION_MODULES = ["repro_torch.distributed",
+                        "repro_torch.distributed.sharding",
+                        "repro_torch.launch.mesh",
+                        "repro_torch.launch.dryrun",
+                        "repro_torch.launch.roofline"]
+
+
+@pytest.mark.parametrize("name", DISTRIBUTION_MODULES)
+def test_distribution_modules_load_no_jax_and_start_no_group(name):
+    """The distribution slice's modules load neither ``jax`` nor any
+    ``repro`` module (nothing is blocked, so an indirect import would
+    show), and importing one builds no mesh and starts no process group:
+    the dry run and the tests set up their own (a fake group of the
+    mesh's size, gloo ranks, one NCCL rank)."""
+    code = (
+        "import sys, importlib\n"
+        "importlib.import_module(sys.argv[1])\n"
+        "import torch.distributed as dist\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'repro')]\n"
+        "print(len(bad), dist.is_available() and dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, name], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0", "False"], out.stdout

@@ -789,3 +789,105 @@ def test_cuda_paged_and_migration_wrappers_refuse_a_graph():
         migrate_blocks(pool, [0], [1])
     with torch.no_grad():
         migrate_blocks(pool, [0], [1])
+
+
+# ---------------------------------------------------------------------------
+# the flash kernel on the sharded path: custom ops, local_map, fake tensors
+# ---------------------------------------------------------------------------
+
+
+def _one_rank_mesh():
+    """A one-rank NCCL group and a (1, 1) ("data", "model") mesh; the
+    caller destroys the group."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return make_debug_mesh(1, 1, device_type="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_local_map_equals_direct_call(dtype):
+    """DTensor q / k / v on a one-rank mesh reach the kernel through
+    ``blockwise_attention``'s ``local_map``: the output and the gradients
+    equal the direct call's bit for bit, and both launch the kernels."""
+    _need_cuda()
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models.common import blockwise_attention
+    mesh = _one_rank_mesh()
+    try:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((2, 200, H, 64), device="cuda", generator=g,
+                               dtype=dt) for H in (8, 2, 2))
+        dq, dk, dv = (distribute_tensor(t, mesh, [Replicate(), Replicate()])
+                      .requires_grad_(True) for t in (q, k, v))
+        q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+        n, nb = flash_attention.launches, flash_attention_bwd.launches
+        want = flash_attention(q, k, v, causal=True)
+        got = blockwise_attention(dq, dk, dv, causal=True)
+        assert torch.equal(got.to_local(), want)
+        want.float().sum().backward()
+        got.float().sum().backward()
+        for a, b in ((dq, q), (dk, k), (dv, v)):
+            assert torch.equal(a.grad.to_local(), b.grad)
+        assert flash_attention.launches == n + 2
+        assert flash_attention_bwd.launches == nb + 2
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_fake_implementations_have_the_kernels_shapes():
+    """Under FakeTensorMode the custom ops return the kernels' shapes and
+    dtypes and launch nothing; FlopCounterMode counts the backward at 5/2
+    of the forward (this PyTorch's formula call convention)."""
+    _need_cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    n = flash_attention.launches
+    with FakeTensorMode():
+        q = torch.empty((2, 300, 8, 128), device="cuda",
+                        dtype=torch.bfloat16)
+        k = torch.empty((2, 300, 2, 128), device="cuda",
+                        dtype=torch.bfloat16)
+        out = torch.ops.repro_torch.flash_attention(q, k, k, True, 0)
+        with FlopCounterMode(display=False) as fwd:
+            o2, lse = torch.ops.repro_torch.flash_attention_lse(
+                q, k, k, True, 0)
+        with FlopCounterMode(display=False) as bwd:
+            dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, k, o2, lse, o2, True, 0)
+    assert fwd.get_total_flops() == 4 * 2 * 8 * 128 * (300 * 301 // 2)
+    assert bwd.get_total_flops() == 5 * fwd.get_total_flops() // 2
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert lse.shape == (2, 8, 300) and lse.dtype == torch.float32
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert flash_attention.launches == n
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_refuses_a_dtensor():
+    """A DTensor handed to the raw wrapper raises: it never reaches a
+    launch and never falls back to the plain version."""
+    _need_cuda()
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    mesh = _one_rank_mesh()
+    try:
+        q = distribute_tensor(torch.zeros((1, 16, 4, 64), device="cuda"),
+                              mesh, [Replicate(), Replicate()])
+        n = flash_attention.launches
+        with pytest.raises(TypeError, match="not DTensors"):
+            flash_attention(q, q, q, causal=True)
+        assert flash_attention.launches == n
+    finally:
+        dist.destroy_process_group()

@@ -183,3 +183,80 @@ def test_attention_gradient_matches_jax_grad(case):
         causal=causal, prefix_len=prefix)
     for p, g in zip(plain, got):
         np.testing.assert_allclose(p.numpy(), g.numpy(), atol=2e-5)
+
+
+# cfg.remat: the transformer's "full" and "dots" (the reference's
+# checkpoint_dots_with_no_batch_dims); the ssm, hybrid and encdec families
+# remat only under "full", as the reference's
+REMAT_CASES = [("deepseek-7b", "full"), ("deepseek-7b", "dots"),
+               ("granite-moe-1b-a400m", "dots"), ("mamba2-780m", "full"),
+               ("zamba2-1.2b", "full"), ("whisper-medium", "full")]
+REMAT_GRAD = ("deepseek-7b", "mamba2-780m")
+
+
+def _trainable(tree):
+    if isinstance(tree, dict):
+        return {k: _trainable(v) for k, v in tree.items()}
+    return tree.detach().clone().requires_grad_(True)
+
+
+def _loss_and_grads(api, params, batch):
+    """(loss, gradients in the reference's flatten order) on a trainable
+    copy of ``params``."""
+    tree = _trainable(params)
+    loss, _ = api.loss(tree, batch)
+    return loss.item(), torch.autograd.grad(loss, flatten(tree))
+
+
+@pytest.mark.parametrize("arch,remat", REMAT_CASES)
+def test_remat_loss_and_gradients_equal_none_and_jax(arch, remat):
+    """Under remat the loss and every gradient leaf equal the un-rematted
+    ones (fp32, 1e-6), and the reference's at the same remat: its loss
+    (1e-4) and, for a dense and an ssm model, ``jax.grad`` (rel 1e-4 /
+    atol 1e-6)."""
+    japi, api, jp, tp = _pair(arch)
+    jb, tb = _batches(api.cfg)
+    rapi = registry.get_model(api.cfg.replace(remat=remat))
+    loss0, grads0 = _loss_and_grads(api, tp, tb)
+    loss, grads = _loss_and_grads(rapi, tp, tb)
+    assert abs(loss - loss0) <= 1e-6, (loss, loss0)
+    for i, (g, g0) in enumerate(zip(grads, grads0)):
+        assert (g - g0).abs().max().item() <= 1e-6, i
+    jrapi = jregistry.get_model(japi.cfg.replace(remat=remat))
+    assert abs(loss - float(jrapi.loss(jp, jb)[0])) <= 1e-4
+    if arch in REMAT_GRAD:
+        want = jax.tree.leaves(jax.grad(lambda p: jrapi.loss(p, jb)[0])(jp))
+        for i, (g, w) in enumerate(zip(grads, want)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"leaf {i}")
+
+
+def _empty_like(tree):
+    if isinstance(tree, dict):
+        return {k: _empty_like(v) for k, v in tree.items()}
+    return torch.empty(tree.shape, dtype=tree.dtype).requires_grad_(True)
+
+
+def _peak_step_bytes(remat):
+    """Peak live bytes of a 4-layer loss + backward on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import LocalCounter
+    cfg = configs.reduced(configs.get_config("deepseek-7b")).replace(
+        dtype="float32", num_layers=4, remat=remat)
+    api = registry.get_model(cfg)
+    with FakeTensorMode():
+        tree = _empty_like(registry.param_specs(cfg))
+        tok = torch.zeros((2, 512), dtype=torch.int32)
+        counter = LocalCounter()
+        for x in flatten(tree):
+            counter.track(x)
+        with counter:
+            loss, _ = api.loss(tree, {"tokens": tok, "labels": tok})
+            torch.autograd.grad(loss, flatten(tree))
+    return counter.peak
+
+
+def test_remat_lowers_the_peak_of_a_four_layer_step():
+    none, full, dots = (_peak_step_bytes(r) for r in ("none", "full",
+                                                      "dots"))
+    assert full < dots < none, (none, full, dots)
