@@ -76,11 +76,13 @@ Phases (any failed check raises, and the script exits non-zero):
                streams equal colocated ones (runs after phase 8);
  20. flash_grad — the flash backward kernel (csrc/flash_attention_bwd.cu)
                against its plain version and the log-sum-exp forward
-               against the plain log-sum-exp, fp32 (TF32 off) and bf16, on
-               FLASH_CASES' D 64 / 128 rows, the two training shapes, a
-               prefix and a non-causal Sq != Sk; timed at the training
-               shapes beside its bound, the plain version and SDPA's
-               backward;
+               against the plain log-sum-exp, fp32 (TF32 off) and bf16, at
+               head_dim 32, 64, 128 and 256 (FLASH_CASES, FLASH_256_CASES,
+               the two training shapes, a prefix and a non-causal
+               Sq != Sk), two launches equal to the bit; timed at five
+               shapes (the draft's, granite's and paligemma's training
+               steps, deepseek-7b's heads, gemma-7b's --reduced step)
+               beside its bound, the plain version and SDPA's backward;
  21. train_fp32 — the paper-7b draft at full width and 2 layers, fp32: the
                train step's loss and gradients with attention through the
                kernels equal those through the plain version (1e-5, 1e-4
@@ -95,7 +97,18 @@ Phases (any failed check raises, and the script exits non-zero):
  23. train_cli — ``python -m repro_torch.launch.train`` on
                granite-moe-1b-a400m at full width, 3 steps of 2 x 1,024, in
                a subprocess: exit 0, finite losses, its launches.
- 24. sharded — the sharded path on a one-rank NCCL group and a (1, 1)
+ 24. train_vlm — paligemma-3b's language model trained at full width and
+               depth in bf16 through ``train()``, 3 steps of 2 x (256
+               seeded image rows + 768 text tokens): the backward at
+               head_dim 256 with MQA and the image prefix, 18 forward and
+               18 backward launches a step, step ms, peak memory; then fp32
+               at 4 layers: every gradient leaf within 1e-4 of the plain
+               path's;
+ 25. train_cli_reduced — the reference's documented command,
+               ``python -m repro_torch.launch.train --arch gemma-7b
+               --reduced`` (head_dim 32, 50 steps of 8 x 128), in a
+               subprocess: exit 0, finite losses, its launches;
+ 26. sharded — the sharded path on a one-rank NCCL group and a (1, 1)
                ("data", "model") mesh, DTensor weights at full width in
                bf16: the draft's loss and gradients at 2 x 4,096 (fsdp)
                and the target's dense prefill + 4 decode steps (tp_seq),
@@ -103,12 +116,12 @@ Phases (any failed check raises, and the script exits non-zero):
                leaf's relative error and the worst leaf printed); the
                flash forward and backward launches through ``local_map``
                and each path's step ms (DTensor's host overhead);
- 25. remat   — the full-width draft's train step at remat none / full /
+ 27. remat   — the full-width draft's train step at remat none / full /
                dots: peak memory and median step ms over 5 steps, the
                losses equal (bf16 full depth 2e-2, fp32 4 layers 1e-6);
- 26. dryrun  — ``launch/dryrun.py`` in a subprocess on a fake 256-rank
-               process group and the (32, 8) H100 mesh: deepseek-7b
-               train_4k, qwen2-72b prefill_32k and decode_32k,
+ 28. dryrun  — ``launch/dryrun.py`` in a subprocess on a fake 256-rank
+               process group and the (32, 8) H100 mesh: deepseek-7b and
+               paligemma-3b train_4k, qwen2-72b prefill_32k and decode_32k,
                grok-1-314b decode_32k and paper-7b decode_32k
                speculative; per-device flops, bytes, collectives, peak
                memory (data-sheet estimates, fake tensors) and wall
@@ -1886,26 +1899,50 @@ def phase_disagg_lossless(torch, params):
 # granite's in the CLI's 2 x 1,024: (B, Sq, Sk, H, KH, D, causal, prefix_len)
 TRAIN_ATTN = (2, 4096, 4096, 14, 2, 64, True, 0)
 GRANITE_TRAIN_ATTN = (2, 1024, 1024, 16, 8, 64, True, 0)
-# flash backward checks: FLASH_CASES' rows at D 64 / 128, the two training
-# shapes, a prefix and a non-causal Sq != Sk
-FLASH_GRAD_CASES = ([c for c in FLASH_CASES if c[5] in (64, 128)]
-                    + [TRAIN_ATTN, GRANITE_TRAIN_ATTN,
+# paligemma-3b's training step (256 image rows + 768 text, MQA) and
+# gemma-7b's --reduced CLI step
+VLM_TRAIN_ATTN = (2, 1024, 1024, 8, 1, 256, True, 256)
+REDUCED_TRAIN_ATTN = (8, 128, 128, 4, 4, 32, True, 0)
+# flash backward checks: every FLASH_CASES row (D 32 / 64 / 128), the
+# head_dim-256 rows (paligemma's MQA image prefix, gemma-7b's MHA, ragged
+# and non-causal corners), the four training shapes, a prefix and a
+# non-causal Sq != Sk
+FLASH_GRAD_CASES = (FLASH_CASES + FLASH_256_CASES
+                    + [TRAIN_ATTN, GRANITE_TRAIN_ATTN, VLM_TRAIN_ATTN,
+                       REDUCED_TRAIN_ATTN,
                        (1, 512, 512, 14, 2, 64, True, 300),
                        (2, 100, 700, 14, 2, 64, False, 0)])
+# flash backward timings (bf16, causal): label, B, S, H, KH, D, prefix_len —
+# the draft's and granite's training steps, paligemma-3b's (256 image rows
+# + 768 text tokens, MQA), deepseek-7b's heads at train_4k and gemma-7b's
+# --reduced CLI step (head_dim 32)
+FLASH_GRAD_TIMED = [
+    ("draft training step", 2, 4096, 14, 2, 64, 0),
+    ("granite training step", 2, 1024, 16, 8, 64, 0),
+    ("paligemma training step", 2, 1024, 8, 1, 256, 256),
+    ("deepseek-7b heads, train_4k", 1, 4096, 32, 32, 128, 0),
+    ("gemma-7b --reduced CLI step", 8, 128, 4, 4, 32, 0)]
 GRAD_ATOL = 2e-4   # fp32: a gradient sums over every key (forward: 2e-5)
 GRAD_REL = 1e-2    # bf16: ||kernel - plain|| / ||plain||
 LSE_ATOL = 2e-5
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 CLI_ARGS = ["--arch", GRANITE, "--steps", "3", "--batch", "2", "--seq",
             "1024"]
+# the reference's documented invocation (src/repro/launch/train.py), on the
+# card: every --reduced config has head_dim 32
+CLI_REDUCED_ARGS = ["--arch", "gemma-7b", "--reduced"]
+VLM_TEXT = 768   # paligemma's text tokens a sequence, after 256 image rows
 
 
-def flash_bwd_bound(B, S, H, KH, D, es):
+def flash_bwd_bound(B, S, H, KH, D, es, prefix_len=0):
     """Least time of the causal backward: 2.5 times the forward's flops (4 D
-    per visible (query, key) pair and head) over the bf16 peak, against q,
-    k, v, o, dO and the log-sum-exp read once and dq, dk, dv written once
-    over HBM bandwidth."""
-    flops = 2.5 * 4 * B * H * D * (S * (S + 1) // 2)
+    per visible (query, key) pair and head; query i sees max(i + 1,
+    prefix_len) keys) over the bf16 peak, against q, k, v, o, dO and the
+    log-sum-exp read once and dq, dk, dv written once over HBM
+    bandwidth."""
+    from repro_torch.kernels.flash_attention import attention_pairs
+    pairs = attention_pairs(S, S, True, prefix_len)
+    flops = 2.5 * 4 * B * H * D * pairs
     nbytes = es * B * S * D * (4 * H + 4 * KH) + 4 * B * H * S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["bfloat16"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1914,9 +1951,11 @@ def flash_bwd_bound(B, S, H, KH, D, es):
 
 def phase_flash_grad(torch):
     """The backward kernel against ``flash_attention_bwd_ref`` and the
-    log-sum-exp forward against the plain log-sum-exp on FLASH_GRAD_CASES,
-    fp32 (TF32 off) and bf16; then the backward timed at the two training
-    shapes beside its bound, its plain version and SDPA's backward."""
+    log-sum-exp forward against the plain log-sum-exp on FLASH_GRAD_CASES
+    (every head_dim), fp32 (TF32 off) and bf16, and two launches on the
+    same inputs equal to the bit; then the backward timed at
+    FLASH_GRAD_TIMED beside its bound, its plain version and SDPA's
+    backward."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_forward,
                                                      flash_attention,
@@ -1938,6 +1977,8 @@ def phase_flash_grad(torch):
         o, lse = _forward(q, k, v, causal, prefix, with_lse=True)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   prefix_len=prefix)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                    prefix_len=prefix)
         want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        prefix_len=prefix)
         _, want_lse = flash_attention_lse_ref(q, k, v, causal=causal,
@@ -1949,6 +1990,8 @@ def phase_flash_grad(torch):
         rel_err = max(((g.float() - w.float()).norm()
                        / w.float().norm()).item() for g, w in zip(got, want))
         assert all(torch.isfinite(g).all() for g in got)
+        assert all(torch.equal(g, a) for g, a in zip(got, again)), \
+            ("not deterministic", dtype, B, Sq, Sk, H, KH, D)
         return (q, k, v, do, o, lse, want), lse_err, abs_err, rel_err
 
     worst = {}
@@ -1968,32 +2011,40 @@ def phase_flash_grad(torch):
                 w[key] = max(w[key], x)
             torch.cuda.empty_cache()
     emit("check", kernel="flash_attention_bwd",
-         cases=2 * len(FLASH_GRAD_CASES), lse_atol=LSE_ATOL,
-         grad_atol_float32=GRAD_ATOL, grad_rel_bfloat16=GRAD_REL,
-         worst=worst)
+         cases=2 * len(FLASH_GRAD_CASES),
+         head_dims=sorted({c[5] for c in FLASH_GRAD_CASES}),
+         lse_atol=LSE_ATOL, grad_atol_float32=GRAD_ATOL,
+         grad_rel_bfloat16=GRAD_REL, deterministic=True, worst=worst)
 
     flush = torch.empty(16 * 2**20, dtype=torch.float32, device="cuda")
     rows = []
-    for label, case in (("draft training step", TRAIN_ATTN),
-                        ("granite training step", GRANITE_TRAIN_ATTN)):
-        B, S, _, H, KH, D, _, _ = case
+    for label, B, S, H, KH, D, prefix in FLASH_GRAD_TIMED:
+        case = (B, S, S, H, KH, D, True, prefix)
         (q, k, v, do, o, lse, want), _, err, rel = grads(torch.bfloat16,
                                                          *case)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                       for x in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                 enable_gqa=True)
+        if prefix:   # SDPA takes the prefix-causal mask as a boolean tensor
+            pos = torch.arange(S, device="cuda")
+            lib_kw = dict(attn_mask=(pos[:, None] >= pos[None, :])
+                          | (pos[None, :] < prefix))
+        else:
+            lib_kw = dict(is_causal=True)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                 **lib_kw)
         lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                   retain_graph=True)
         lib_rel = max(((g.transpose(1, 2).float() - w.float()).norm()
                        / w.float().norm()).item()
                       for g, w in zip(lib, want))
+        assert rel <= GRAD_REL, (label, rel)
         assert lib_rel <= GRAD_REL, (label, lib_rel)
-        bound, by = flash_bwd_bound(B, S, H, KH, D, q.element_size())
-        kw = dict(causal=True, prefix_len=0)
+        bound, by = flash_bwd_bound(B, S, H, KH, D, q.element_size(), prefix)
+        kw = dict(causal=True, prefix_len=prefix)
         rows.append(dict(
-            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D} causal",
+            shape=f"{label}: B={B} S={S} H={H} KH={KH} D={D} causal"
+            + (f" prefix_len={prefix}" if prefix else ""),
             max_abs_err=err, rel_err=rel, sdpa_rel_err=lib_rel,
             ms=cuda_ms(torch, lambda: flash_attention_bwd(
                 q, k, v, o, lse, do, **kw), flush=flush),
@@ -2006,7 +2057,7 @@ def phase_flash_grad(torch):
             forward_ms=cuda_ms(torch, lambda: flash_attention(q, k, v, **kw),
                                flush=flush),
             forward_with_lse_ms=cuda_ms(torch, lambda: _forward(
-                q, k, v, True, 0, with_lse=True), flush=flush)))
+                q, k, v, True, prefix, with_lse=True), flush=flush)))
         del q, k, v, do, o, lse, want, qt, kt, vt, dot, lib_out, lib
         torch.cuda.empty_cache()
     del flush
@@ -2031,38 +2082,19 @@ def tree_bits_equal(torch, a, b):
         for x, y in zip(fa, fb))
 
 
-def phase_train_fp32(torch):
-    """The draft at full width (d 896, vocab 152,064) and 2 layers, fp32 with
-    TF32 off: the train step's loss and gradients with attention through
-    the CUDA kernels, then through the plain version (swapped in for
-    ``models.common.flash_attention``, as ``FlashKinds`` does): loss within
-    1e-5, every gradient leaf within 1e-4 of its own norm, and the q / k / v
-    projections' gradients nonzero (what the wrapper once dropped).  Then
-    one whole ``train_step`` on the kernel path."""
-    from repro_torch import configs
+def kernel_vs_plain_grads(torch, api, params, batch):
+    """The loss and gradients of ``api.loss`` with attention through the
+    CUDA kernels, then through the plain version (swapped in for
+    ``models.common.flash_attention``, as ``FlashKinds`` does).  Returns
+    (kernel loss, plain loss, {leaf path: |kernel - plain| / |plain|},
+    kernel gradients, the kernel run's launches, the plain run's)."""
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models import common
-    from repro_torch.training.checkpoint import flatten
-    from repro_torch.training.data import make_batch_iter
-    from repro_torch.training.optimizer import adamw_init
-    from repro_torch.training.train_loop import loss_and_grads, make_train_step
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = configs.get_draft_config("paper-7b").replace(num_layers=2,
-                                                       dtype="float32")
-    api, step = make_train_step(cfg, base_lr=1e-3, warmup=10)
-    params = api.init(device="cuda", seed=4)
-    for x in flatten(params):
-        x.requires_grad_(True)
-    batch = make_batch_iter(cfg.vocab_size, 2, 1024, seed=0,
-                            device="cuda")(0)
+    from repro_torch.training.train_loop import loss_and_grads
     reset_counts()
     loss_k, grads_k = loss_and_grads(api, params, batch)
     torch.cuda.synchronize()
     kernel_counts = read_counts()
-    assert kernel_counts["flash_attention"] == cfg.num_layers, kernel_counts
-    assert kernel_counts["flash_attention_bwd"] == cfg.num_layers, \
-        kernel_counts
     orig = common.flash_attention
     common.flash_attention = flash_attention_ref
     try:
@@ -2073,8 +2105,6 @@ def phase_train_fp32(torch):
     finally:
         common.flash_attention = orig
     assert not any(plain_counts.values()), plain_counts
-    loss_err = abs(loss_k.item() - loss_p.item())
-    assert loss_err <= 1e-5, loss_err
     rel = {}
 
     def walk(gk, gp, path):
@@ -2084,6 +2114,39 @@ def phase_train_fp32(torch):
             return
         rel[path] = ((gk - gp).norm() / gp.norm().clamp(min=1e-30)).item()
     walk(grads_k, grads_p, "")
+    del grads_p
+    return loss_k, loss_p, rel, grads_k, kernel_counts, plain_counts
+
+
+def phase_train_fp32(torch):
+    """The draft at full width (d 896, vocab 152,064) and 2 layers, fp32 with
+    TF32 off: the train step's loss and gradients with attention through
+    the CUDA kernels equal those through the plain version: loss within
+    1e-5, every gradient leaf within 1e-4 of its own norm, and the q / k / v
+    projections' gradients nonzero (what the wrapper once dropped).  Then
+    one whole ``train_step`` on the kernel path."""
+    from repro_torch import configs
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.data import make_batch_iter
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get_draft_config("paper-7b").replace(num_layers=2,
+                                                       dtype="float32")
+    api, step = make_train_step(cfg, base_lr=1e-3, warmup=10)
+    params = api.init(device="cuda", seed=4)
+    for x in flatten(params):
+        x.requires_grad_(True)
+    batch = make_batch_iter(cfg.vocab_size, 2, 1024, seed=0,
+                            device="cuda")(0)
+    loss_k, loss_p, rel, grads_k, kernel_counts, plain_counts = \
+        kernel_vs_plain_grads(torch, api, params, batch)
+    assert kernel_counts["flash_attention"] == cfg.num_layers, kernel_counts
+    assert kernel_counts["flash_attention_bwd"] == cfg.num_layers, \
+        kernel_counts
+    loss_err = abs(loss_k.item() - loss_p.item())
+    assert loss_err <= 1e-5, loss_err
     worst = max(rel, key=rel.get)
     assert rel[worst] <= 1e-4, (worst, rel[worst])
     attn = grads_k["layers"]["attn"]
@@ -2100,7 +2163,7 @@ def phase_train_fp32(torch):
          train_step={"loss": m["loss"].item(),
                      "grad_norm": m["grad_norm"].item(),
                      "step": int(opt.step)})
-    del params, opt, grads_k, grads_p, m
+    del params, opt, grads_k, m
     torch.cuda.empty_cache()
 
 
@@ -2228,16 +2291,15 @@ print(json.dumps({"launches": {
 """
 
 
-def phase_train_cli(torch):
-    """The training CLI at full width: granite-moe-1b-a400m, 3 steps of
-    2 x 1,024 tokens in a subprocess.  It must exit 0 and print the
-    reference's lines with finite losses; 24 flash forward and backward
-    launches per step."""
-    from repro_torch import configs
-    cfg = configs.get_config(GRANITE)
+def run_train_cli(torch, args, steps, layers):
+    """``python -m repro_torch.launch.train`` with ``args`` in a subprocess:
+    it must exit 0 and print the reference's lines (a step line for every
+    10th step and the last, then the final loss) with finite losses, and
+    launch the flash forward and backward once a layer a step.  Returns
+    (its lines, the losses, its launches and peak, wall seconds)."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", CLI_CODE, *CLI_ARGS],
+    out = subprocess.run([sys.executable, "-c", CLI_CODE, *args],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=900,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
@@ -2246,19 +2308,162 @@ def phase_train_cli(torch):
     lines = out.stdout.strip().splitlines()
     stats = json.loads(lines[-1])
     losses = [float(ln.split()[-1]) for ln in lines[:-2]]
-    assert [ln.split()[:2] for ln in lines[:-2]] == [["step", "0"],
-                                                    ["step", "2"]], lines
+    recorded = sorted({i for i in range(steps) if i % 10 == 0} | {steps - 1})
+    assert [ln.split()[:2] for ln in lines[:-2]] == [
+        ["step", str(i)] for i in recorded], lines
     assert lines[-2].startswith("final loss "), lines
     assert all(math.isfinite(x) for x in losses), losses
     launches = stats["launches"]
-    assert launches["flash_attention"] == 3 * cfg.num_layers, launches
-    assert launches["flash_attention_bwd"] == 3 * cfg.num_layers, launches
+    assert launches["flash_attention"] == steps * layers, launches
+    assert launches["flash_attention_bwd"] == steps * layers, launches
+    return lines[:-1], losses, stats, wall
+
+
+def phase_train_cli(torch):
+    """The training CLI at full width: granite-moe-1b-a400m, 3 steps of
+    2 x 1,024 tokens in a subprocess (``run_train_cli``)."""
+    from repro_torch import configs
+    cfg = configs.get_config(GRANITE)
+    lines, losses, stats, wall = run_train_cli(torch, CLI_ARGS, 3,
+                                               cfg.num_layers)
     emit("train_cli", command="python -m repro_torch.launch.train "
          + " ".join(CLI_ARGS), model=f"{GRANITE}, full width and depth, "
-         "bf16", output=lines[:-1], losses=losses, wall_s=wall,
+         "bf16", output=lines, losses=losses, wall_s=wall,
          max_memory_allocated_bytes=stats["max_memory_allocated_bytes"],
-         launches=launches)
-    return launches
+         launches=stats["launches"])
+    return stats["launches"]
+
+
+def phase_train_cli_reduced(torch):
+    """The reference's documented training command on the card with its
+    defaults (50 steps of 8 x 128 tokens): gemma-7b ``--reduced``, whose
+    heads are 32 wide as every reduced config's, through
+    ``run_train_cli``."""
+    from repro_torch import configs
+    cfg = configs.reduced(configs.get_config("gemma-7b"))
+    lines, losses, stats, wall = run_train_cli(torch, CLI_REDUCED_ARGS, 50,
+                                               cfg.num_layers)
+    emit("train_cli_reduced", command="python -m repro_torch.launch.train "
+         + " ".join(CLI_REDUCED_ARGS), model="gemma-7b reduced: 2 layers, "
+         f"d 128, {cfg.num_heads} / {cfg.num_kv_heads} heads of "
+         f"{cfg.resolved_head_dim}, bf16", output=lines, losses=losses,
+         wall_s=wall, launches=stats["launches"])
+    return stats["launches"]
+
+
+def vlm_batch_iter(torch, cfg, batch):
+    """``it(step)``: SyntheticLM text of VLM_TEXT tokens and seeded image
+    embeddings (batch, num_image_tokens, d) in the model's dtype, the
+    inputs of paligemma's loss."""
+    from repro_torch.training.data import make_batch_iter
+    text = make_batch_iter(cfg.vocab_size, batch, VLM_TEXT, seed=0,
+                           device="cuda")
+
+    def it(step):
+        out = text(step)
+        gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+        out["image_emb"] = torch.randn(
+            (batch, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device="cuda").to(getattr(torch, cfg.dtype))
+        return out
+    return it
+
+
+def phase_train_vlm(torch):
+    """paligemma-3b's language model trained at full width and depth
+    (d 2,048, 18 layers, 8 / 1 heads of 256, GeGLU, vocab 257,216, bf16)
+    through ``train()``: 3 steps of 2 sequences of 256 seeded image rows
+    and 768 text tokens, so every layer's attention is MQA with the
+    bidirectional prefix of 256.  Prints each step's loss, device ms and
+    launches (18 flash forward and 18 backward), tokens/s and peak memory.
+    Then fp32 at 4 layers (TF32 off): the loss and every gradient leaf with
+    attention through the kernels within 1e-5 / 1e-4 of the plain
+    version's."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.training.checkpoint import flatten
+    from repro_torch.training.train_loop import train
+    cfg = configs.get_config(PALIGEMMA).replace(dtype="bfloat16")
+    B, steps = 2, 3
+    make = vlm_batch_iter(torch, cfg, B)
+    log = {}
+
+    def batch_iter(step):
+        batch = make(step)
+        log[step] = {"start": torch.cuda.Event(enable_timing=True),
+                     "before": read_counts()}
+        log[step]["start"].record()
+        return batch
+
+    def hook(step, metrics):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        rec = log[step]
+        rec["loss"] = metrics["loss"].item()          # synchronises
+        rec["grad_norm"] = metrics["grad_norm"].item()
+        rec["step_ms"] = rec.pop("start").elapsed_time(end)
+        after, before = read_counts(), rec.pop("before")
+        rec["launches"] = {k: after[k] - before[k] for k in after}
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = train(cfg, steps=steps, batch_iter=batch_iter, seed=0,
+                device="cuda", hooks=[hook], base_lr=1e-3, warmup=10)
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    per_step = {"flash_attention": cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers,
+                "paged_attention": 0, "migrate_blocks": 0}
+    for i, rec in log.items():
+        assert rec["launches"] == per_step, (i, rec["launches"])
+        assert math.isfinite(rec["loss"]) and math.isfinite(
+            rec["grad_norm"]), (i, rec)
+    step_ms = sorted(rec["step_ms"] for rec in log.values())[steps // 2]
+    n_params = registry.param_count(cfg)
+    emit("train_vlm", model=f"{PALIGEMMA} language model, full width and "
+         "depth, bf16, SyntheticLM text + seeded image embeddings",
+         layers=cfg.num_layers, batch=B, image_rows=cfg.num_image_tokens,
+         text_tokens=VLM_TEXT, prefix_len=cfg.num_image_tokens,
+         params=n_params, allocated_before_phase_bytes=allocated_before,
+         steps_log=[{"step": i, **log[i]} for i in range(steps)],
+         median_step_ms=step_ms,
+         trained_tokens_per_s=B * VLM_TEXT / step_ms * 1e3,
+         max_memory_allocated_bytes=peak, wall_s=out["elapsed_s"],
+         launches=counts)
+    del out
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = configs.get_config(PALIGEMMA).replace(num_layers=4,
+                                                  dtype="float32")
+    api = registry.get_model(cfg32)
+    params = api.init(device="cuda", seed=5)
+    for x in flatten(params):
+        x.requires_grad_(True)
+    batch = vlm_batch_iter(torch, cfg32, B)(0)
+    loss_k, loss_p, rel, grads_k, kernel_counts, plain_counts = \
+        kernel_vs_plain_grads(torch, api, params, batch)
+    assert kernel_counts["flash_attention"] == cfg32.num_layers, \
+        kernel_counts
+    assert kernel_counts["flash_attention_bwd"] == cfg32.num_layers, \
+        kernel_counts
+    loss_err = abs(loss_k.item() - loss_p.item())
+    assert loss_err <= 1e-5, loss_err
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 1e-4, (worst, rel[worst])
+    emit("train_vlm", model=f"{PALIGEMMA}, full width, 4 layers, fp32, "
+         "TF32 off, batch 2 x (256 image rows + 768 text)",
+         loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
+         loss_abs_err=loss_err, grad_leaves=len(rel),
+         worst_grad_leaf=worst, worst_grad_rel_err=rel[worst],
+         kernel_launches=kernel_counts, plain_launches=plain_counts)
+    del params, grads_k, batch
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2537,10 +2742,12 @@ def phase_remat(torch):
 # the dry run's cells on the card: one subprocess with its own fake
 # process group on the (32, 8) production mesh.  qwen2-72b train_4k (eager
 # DTensor dispatch over 8 microbatches of 80 layers, about 3 minutes) is
-# cut to keep the phase near 2 minutes; deepseek-7b train_4k stands for
-# the train cells (the flash backward's custom op and its flop formula on
-# fake CUDA tensors).  The full table runs through the CLI (README)
+# cut to keep the phase near 2 minutes; deepseek-7b and paligemma-3b
+# train_4k stand for the train cells (the flash backward's custom op and
+# its flop formula on fake CUDA tensors, at head_dim 128 and at 256 with
+# MQA and the image prefix).  The full table runs through the CLI (README)
 DRYRUN_ARGS = [["--arch", "deepseek-7b", "--shape", "train_4k"],
+               ["--arch", "paligemma-3b", "--shape", "train_4k"],
                ["--arch", "qwen2-72b", "--shape", "prefill_32k"],
                ["--arch", "qwen2-72b", "--shape", "decode_32k"],
                ["--arch", "grok-1-314b", "--shape", "decode_32k"],
@@ -2594,8 +2801,9 @@ print(json.dumps({"torch": torch.__version__, "device": res["device"],
 def phase_dryrun(torch):
     """``python -m repro_torch.launch.dryrun``'s cells in a subprocess (its
     own fake process group of 256 ranks, fake CUDA tensors, nothing on the
-    card): qwen2-72b prefill_32k and decode_32k, grok-1-314b decode_32k
-    and paper-7b decode_32k speculative; each cell's per-device terms
+    card): deepseek-7b and paligemma-3b train_4k, qwen2-72b prefill_32k
+    and decode_32k, grok-1-314b decode_32k and paper-7b decode_32k
+    speculative; each cell's per-device terms
     (H100 data-sheet estimates, not measurements) and its wall
     seconds."""
     out_dir = ROOT / "build" / "dryrun"
@@ -2733,6 +2941,8 @@ def main() -> int:
     phase_train_fp32(torch)
     by_path["train"] = phase_train(torch)
     by_path["train_cli"] = phase_train_cli(torch)
+    by_path["train_vlm"] = phase_train_vlm(torch)
+    by_path["train_cli_reduced"] = phase_train_cli_reduced(torch)
     by_path["sharded"] = phase_sharded(torch)
     by_path["remat"] = phase_remat(torch)
     phase_dryrun(torch)

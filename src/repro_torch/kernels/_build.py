@@ -34,8 +34,9 @@ SIGNATURES = {
                               _c_int, _c_void_p],
     "flash_attention_launch": [_c_void_p] * 5 + [_c_int] * 8
     + [_c_float, _c_int, _c_void_p],
-    "flash_attention_bwd_launch": [_c_void_p] * 10 + [_c_int] * 8
-    + [_c_float, _c_int, _c_void_p],
+    "flash_attention_bwd_launch": [_c_void_p] * 8 + [_c_int]
+    + [_c_void_p] * 3 + [_c_int] * 8 + [_c_float, _c_int, _c_void_p],
+    "flash_attention_bwd_rows": [],
 }
 
 

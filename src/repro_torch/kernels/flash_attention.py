@@ -10,9 +10,10 @@ CUDA cores (exact to 2e-5 with TF32 off, which the tensor cores are not).
 
 Under autograd (grad mode on and an input that requires grad, as in
 training) the forward kernel also writes each row's log-sum-exp, and the
-backward is the hand-written ``csrc/flash_attention_bwd.cu`` (head_dim 64
-and 128; bf16 at 64 on the tensor cores).  Every other call (all of
-serving) is the plain forward launch.
+backward is the hand-written ``csrc/flash_attention_bwd.cu`` at every
+head_dim the forward takes (bf16 on the tensor cores with warpgroup
+products, fp32 on the CUDA cores).  Every other call (all of serving) is
+the plain forward launch.
 
 The launches are three custom ops (``torch.ops.repro_torch.flash_attention``,
 ``flash_attention_lse`` with its autograd formula, and
@@ -25,6 +26,8 @@ raises on a DTensor.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import register_flop_formula
@@ -34,7 +37,6 @@ from .ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
 
 
 def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
@@ -44,9 +46,8 @@ def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     CUDA tensor launches the kernel (and adds one to
     ``flash_attention.launches``) or raises.  On a CUDA tensor under
     autograd the result has a ``grad_fn`` whose backward launches
-    :func:`flash_attention_bwd`; a configuration the backward does not take
-    raises here, before the forward runs.  A DTensor raises: its local
-    shards are the caller's to pass (``blockwise_attention``)."""
+    :func:`flash_attention_bwd`.  A DTensor raises: its local shards are
+    the caller's to pass (``blockwise_attention``)."""
     if any(isinstance(t, DTensor) for t in (q, k, v)):
         raise TypeError("flash_attention takes local tensors, not DTensors "
                         "(models.common.blockwise_attention maps a DTensor "
@@ -57,7 +58,6 @@ def flash_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     _check(q, k, v, causal, prefix_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _check_bwd(q)
         return torch.ops.repro_torch.flash_attention_lse(
             q, k, v, causal, prefix_len)[0]
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, prefix_len)
@@ -174,14 +174,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
     incoming gradient ``dout`` of its output ``out``, from the forward's
     log-sum-exp ``lse`` (B, H, Sq) fp32; each in its input's dtype.
 
-    CUDA tensors only: three launches (delta, dK/dV, dQ) of
-    ``csrc/flash_attention_bwd.cu`` on the current stream of q's device
-    (autograd calls this from its own thread); adds one to
-    ``flash_attention_bwd.launches``.  The plain version is
-    ``ref.flash_attention_bwd_ref``."""
+    CUDA tensors only, any head_dim of ``HEAD_DIMS``: three launches
+    (delta, dK/dV, dQ) of ``csrc/flash_attention_bwd.cu``, four when
+    :func:`kv_splits` cuts a bf16 dK/dV grid, on the current stream of q's
+    device (autograd calls this from its own thread); deterministic (two
+    calls give the same bits); adds one to ``flash_attention_bwd.launches``.
+    The plain version is ``ref.flash_attention_bwd_ref``."""
     _check(q, k, v, causal, prefix_len)
     _check_pointers(q, k, v)
-    _check_bwd(q)
     dout = dout.contiguous()
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -199,11 +199,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
                              f"aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = _build.library().flash_attention_bwd_launch(
+    lib = _build.library()
+    splits = (kv_splits(B, Sk, H, KH, _sm_count(q.device),
+                        lib.flash_attention_bwd_rows())
+              if q.dtype == torch.bfloat16 else 1)
+    part = (torch.empty((2, splits, B, Sk, KH, D), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, D, int(causal),
-        prefix_len, D ** -0.5, _DTYPES[q.dtype],
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        part.data_ptr() if part is not None else None, splits,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KH, D,
+        int(causal), prefix_len, D ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
@@ -213,11 +220,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
 flash_attention_bwd.launches = 0
 
 
-def _check_bwd(q):
-    D = q.shape[-1]
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention: no backward kernel for head_dim "
-                         f"{D} (the backward takes {BWD_HEAD_DIMS})")
+def kv_splits(B: int, Sk: int, H: int, KH: int, sms: int, rows: int) -> int:
+    """Blocks the bf16 dK/dV pass gives each (b, KV head, key tile of
+    ``rows`` keys, the library's ``flash_attention_bwd_rows()``): the
+    smallest divisor of the group H / KH that fills the card's SMs.
+
+    One block per triple walks the whole group and writes dK / dV itself.
+    With few KV heads (MQA: paligemma's 8 heads over one) that leaves most
+    SMs idle, so the group is cut into parts whose fp32 partial sums one
+    more launch adds in order (deterministic).  Splitting a grid that
+    already fills the card only adds that traffic."""
+    blocks = B * KH * -(-Sk // rows)
+    G = H // KH
+    return next((d for d in range(1, G + 1)
+                 if G % d == 0 and blocks * d >= sms), G)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k, v, causal, prefix_len):

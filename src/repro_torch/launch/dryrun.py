@@ -31,9 +31,8 @@ Usage:
 The fake tensors live on ``--device``: by default ``cuda`` when a card is
 present (the card's route: the flash kernel's custom ops), else ``cpu``
 (the plain PyTorch versions; autograd of fake CUDA tensors needs a CUDA
-build of PyTorch).  A cell that raises is listed
-FAILED, as in the reference (the flash backward has no head_dim-256
-kernel, so gemma-7b and paligemma-3b ``train_4k`` fail on ``cuda``).
+build of PyTorch).  A cell that raises is listed FAILED, as in the
+reference.
 """
 from __future__ import annotations
 

@@ -34,8 +34,8 @@ from .serve import build_dense_engine, build_real_engine
 OWN_KERNELS = ("paged_attention_kernel", "paged_combine_kernel",
                "migrate_kernel", "flash_tc_kernel", "flash_simt_kernel",
                "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkdv_tc_kernel",
-               "flash_bwd_dq_tc_kernel")
+               "flash_bwd_dq_kernel", "flash_bwd_dkdv_wgmma_kernel",
+               "flash_bwd_dq_wgmma_kernel", "flash_bwd_sum_kernel")
 
 
 def _busy_us(events) -> float:

@@ -85,22 +85,19 @@ def _chunk_nll(softcap: float, table, h, y):
 def streamed_xent(cfg, params, hidden, labels):
     """Chunked softmax cross-entropy: hidden (B, S, d), labels (B, S); label
     -100 is ignored.  The sequence is cut into ``cfg.xent_chunk`` chunks
-    (the last padded with -100), each unembedded under
+    (the last one shorter where the chunk does not divide S; the reference
+    pads it with ignored labels, which add nothing), each unembedded under
     ``torch.utils.checkpoint``, so no (B, S, V) logits tensor exists in the
     forward or the backward: a chunk's logits are rebuilt when its gradient
-    is taken."""
+    is taken.  No padding: DTensor on the card's PyTorch cannot propagate a
+    pad of a batch-sharded tensor."""
     table = gather_weights(unembed_table(cfg, params))
     hidden = replicate_dim(hidden, 1)   # chunks slice the sequence
-    B, S, d = hidden.shape
+    S = hidden.shape[1]
     chunk = min(cfg.xent_chunk, S)
-    n = -(-S // chunk)
-    pad = n * chunk - S
-    if pad:
-        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
     tot = cnt = 0
-    for i in range(n):
-        sl = slice(i * chunk, (i + 1) * chunk)
+    for start in range(0, S, chunk):
+        sl = slice(start, min(start + chunk, S))
         s, c = checkpoint(_chunk_nll, cfg.logit_softcap, table,
                           hidden[:, sl], labels[:, sl], use_reentrant=False)
         tot, cnt = tot + s, cnt + c

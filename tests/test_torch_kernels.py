@@ -680,7 +680,10 @@ def test_cuda_flash_attention_head_dim_256_matches_plain(case, dtype):
 
 # chip_smoke.py's flash_grad shapes at small B: (B, Sq, Sk, H, KH, D,
 # causal, prefix_len) — the reference sweep's D 64 / 128 rows, the draft's
-# training heads, granite's, a prefix and a non-causal Sq != Sk
+# training heads, granite's, a prefix and a non-causal Sq != Sk; then every
+# head_dim x {causal GQA, MQA with a bidirectional prefix, non-causal MQA
+# with Sq != Sk}, at ragged lengths (MQA's few KV heads take the dK/dV
+# pass's split path in bf16)
 FLASH_GRAD = [(2, 256, 256, 4, 4, 64, True, 0),
               (2, 256, 256, 4, 4, 64, False, 0),
               (1, 128, 128, 8, 2, 128, True, 0),
@@ -689,7 +692,29 @@ FLASH_GRAD = [(2, 256, 256, 4, 4, 64, True, 0),
               (1, 200, 200, 28, 4, 128, True, 130),
               (2, 130, 130, 4, 4, 64, True, 130),
               (2, 37, 200, 14, 2, 64, False, 0),
-              (1, 200, 37, 28, 4, 128, False, 0)]
+              (1, 200, 37, 28, 4, 128, False, 0)] + [
+    case for D in (32, 64, 128, 256)
+    for case in ((2, 130, 130, 8, 2, D, True, 0),
+                 (1, 200, 200, 8, 1, D, True, 130),
+                 (2, 37, 200, 8, 1, D, False, 0))]
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((2, 4096, 14, 2), 1),     # the draft's training step: 256 blocks
+    ((2, 1024, 16, 8), 1),     # granite's: 256 blocks
+    ((2, 1024, 8, 1), 8),      # paligemma's MQA: 32 blocks, 8 heads
+    ((1, 4096, 32, 32), 1),    # deepseek-7b's MHA
+    ((8, 128, 4, 4), 1),       # gemma-7b --reduced: 64 blocks, G = 1
+    ((1, 200, 12, 2), 6)])     # 8 blocks: G = 6 takes 6 (2 and 3 fall short)
+def test_bwd_split_count_fills_the_card(shape, want):
+    """The bf16 dK/dV pass cuts a KV head's group only when its grid of
+    (b, KV head, 64-key tile) blocks would leave SMs of the 132 idle, by the
+    smallest divisor of the group that fills them."""
+    from repro_torch.kernels.flash_attention import kv_splits
+    B, Sk, H, KH = shape
+    got = kv_splits(B, Sk, H, KH, 132, 64)
+    assert got == want
+    assert (H // KH) % got == 0
 
 
 def _grad_inputs(case, dtype, seed=21):
@@ -735,14 +760,17 @@ def test_cuda_flash_lse_and_backward_match_plain(case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_blockwise_attention_has_a_kernel_gradient(dtype):
+@pytest.mark.parametrize("case", [(2, 130, 130, 14, 2, 64),
+                                  (2, 130, 130, 8, 1, 256)])
+def test_cuda_blockwise_attention_has_a_kernel_gradient(case, dtype):
     """The repair: on the card, attention under autograd has a grad_fn, its
     forward and backward are the CUDA kernels, and q.grad, k.grad and v.grad
-    match the plain version's autograd gradient."""
+    match the plain version's autograd gradient (the draft's heads, and
+    paligemma's: head_dim 256, MQA)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models.common import blockwise_attention
     _need_cuda()
-    q, k, v, do = _grad_inputs((2, 130, 130, 14, 2, 64), dtype)
+    q, k, v, do = _grad_inputs(case, dtype)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     nf, nb = flash_attention.launches, flash_attention_bwd.launches
     out = blockwise_attention(q, k, v, causal=True, prefix_len=5)
@@ -762,15 +790,28 @@ def test_cuda_blockwise_attention_has_a_kernel_gradient(dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_flash_backward_refuses_unsupported_head_dims():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 272, 272, 8, 1, 256, True, 256),
+                                  (1, 384, 384, 14, 2, 64, True, 0),
+                                  (2, 37, 200, 4, 4, 32, False, 0),
+                                  (1, 200, 200, 28, 4, 128, True, 130)])
+def test_cuda_flash_backward_is_deterministic(case, dtype):
+    """Two launches on the same inputs give the same bits: no atomics, and
+    the split path's partial sums (paligemma's MQA) added in a fixed
+    order."""
+    from repro_torch.kernels.flash_attention import (_forward,
+                                                     flash_attention_bwd)
     _need_cuda()
-    for D in (32, 256):
-        q = torch.zeros((1, 16, 4, D), device="cuda", requires_grad=True)
-        k = torch.zeros((1, 16, 2, D), device="cuda")
-        with pytest.raises(ValueError, match="no backward kernel"):
-            flash_attention(q, k, k, causal=True)
-        with torch.no_grad():
-            flash_attention(q, k, k, causal=True)   # forward still serves
+    causal, prefix = case[6], case[7]
+    q, k, v, do = _grad_inputs(case, dtype)
+    out, lse = _forward(q, k, v, causal, prefix, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                prefix_len=prefix)
+    second = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                 prefix_len=prefix)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -3,10 +3,12 @@ on the same inputs and bridged fp32 weights at reduced size:
 ``streamed_xent`` (ignored labels, a ragged last chunk, grok's logit
 softcap) and its gradients against ``jax.grad``; ``ModelAPI.loss`` for
 every family (dense, moe, vlm with ``image_emb``, ssm, hybrid, encdec with
-``enc_emb``); the loss's parameter gradients for dense, moe and ssm against
-``jax.grad``; and the attention gradient the port's CUDA backward computes,
-through its plain versions, against ``jax.grad`` of the reference's
-``blockwise_attention`` (src/repro/models/common.py:102)."""
+``enc_emb``); the loss's parameter gradients for dense (gemma-7b's GeGLU
+too), moe, vlm (paligemma with ``image_emb``) and ssm against
+``jax.grad``, and gemma-7b's and paligemma's at head_dim 256; and the
+attention gradient the port's CUDA backward computes, through its plain
+versions, against ``jax.grad`` of the reference's ``blockwise_attention``
+(src/repro/models/common.py:102) at head_dim 32, 64 and 256."""
 import numpy as np
 import pytest
 
@@ -28,15 +30,20 @@ from repro_torch.training.checkpoint import flatten  # noqa: E402
 B, S = 2, 24
 FAMILIES = ["deepseek-7b", "granite-moe-1b-a400m", "paligemma-3b",
             "mamba2-780m", "zamba2-1.2b", "whisper-medium", "grok-1-314b"]
-GRAD_FAMILIES = ["deepseek-7b", "granite-moe-1b-a400m", "mamba2-780m"]
+GRAD_FAMILIES = ["deepseek-7b", "granite-moe-1b-a400m", "mamba2-780m",
+                 "gemma-7b", "paligemma-3b"]
+# the families trained at head_dim 256 at full width, their reduced
+# configs given it back (reduced() sets 32)
+GRAD_HEAD_DIM_256 = ["gemma-7b", "paligemma-3b"]
 
 
-def _pair(arch, key=0):
+def _pair(arch, key=0, **over):
     """(JAX api, port api, JAX params, port params) on the same fp32
-    weights."""
+    weights; ``over`` replaces fields of both reduced configs."""
     jcfg = jconfigs.reduced(jconfigs.get_config(arch)).replace(
-        dtype="float32")
-    cfg = configs.reduced(configs.get_config(arch)).replace(dtype="float32")
+        dtype="float32", **over)
+    cfg = configs.reduced(configs.get_config(arch)).replace(dtype="float32",
+                                                            **over)
     japi, api = jregistry.get_model(jcfg), registry.get_model(cfg)
     jp = japi.init(jax.random.PRNGKey(key))
     tp = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
@@ -128,7 +135,20 @@ def test_model_loss_matches_jax_for_every_family(arch):
 def test_loss_gradients_match_jax_grad(arch):
     """Every parameter leaf's gradient, in the reference's flatten order,
     within rel 1e-4 / atol 1e-6 of ``jax.grad``."""
-    japi, api, jp, tp = _pair(arch)
+    _check_loss_gradients(arch)
+
+
+@pytest.mark.parametrize("arch", GRAD_HEAD_DIM_256)
+def test_loss_gradients_match_jax_grad_at_head_dim_256(arch):
+    """As above with head_dim 256 on both configs (4 heads of 256 over
+    d_model 128; paligemma's one KV head and image prefix)."""
+    _check_loss_gradients(arch, head_dim=256)
+
+
+def _check_loss_gradients(arch, **over):
+    japi, api, jp, tp = _pair(arch, **over)
+    if "head_dim" in over:
+        assert api.cfg.resolved_head_dim == over["head_dim"]
     jb, tb = _batches(api.cfg)
     jgrads = jax.grad(lambda p: japi.loss(p, jb)[0])(jp)
     leaves = flatten(tp)
@@ -144,10 +164,16 @@ def test_loss_gradients_match_jax_grad(arch):
 
 
 # (B, Sq, Sk, H, KH, D, causal, prefix_len): causal GQA, causal with a
-# bidirectional prefix, non-causal Sq != Sk (MQA)
+# bidirectional prefix, non-causal Sq != Sk (MQA); head_dim 256: MQA 8 / 1
+# with a prefix at a ragged length (paligemma's heads) and MHA 4 / 4
+# causal (gemma-7b's); head_dim 32 non-causal Sq != Sk (the reduced
+# configs')
 ATTN_GRAD_CASES = [(2, 37, 37, 14, 2, 64, True, 0),
                    (1, 40, 40, 4, 2, 32, True, 9),
-                   (2, 17, 50, 4, 1, 64, False, 0)]
+                   (2, 17, 50, 4, 1, 64, False, 0),
+                   (1, 37, 37, 8, 1, 256, True, 16),
+                   (2, 33, 33, 4, 4, 256, True, 0),
+                   (2, 19, 45, 4, 2, 32, False, 0)]
 
 
 @pytest.mark.parametrize("case", ATTN_GRAD_CASES)
