@@ -128,6 +128,24 @@ Phases (any failed check raises, and the script exits non-zero):
                seconds; then the local counting held on this PyTorch
                (8 x an (8, 1) fsdp train step's per-device flops equal
                the unsharded step's within 1 %).
+ 29. pressure_serve — the real tier under memory pressure on phase 3's
+               weights (runs after phase 18): a host KV tier, prefix
+               caching and chunks of 16 on a pool cut to 12 blocks, the
+               serve's eight requests and then their prompts again; every
+               request finishes; prints the preemptions, the blocks
+               spilled and restored with their ms, GB/s and checksum
+               time, tokens/s, peak memory and the launches;
+ 30. chunked_lossless — fp32 cut depth (after phase 19): chunk budgets of
+               4, 7 and 16 tokens give the streams of monolithic prefill,
+               with steps that mix chunks and decode rows;
+ 31. preempt_lossless — fp32 cut depth: 10 blocks of 4 tokens under four
+               requests force preempt-and-recompute; all finish with the
+               streams of a roomy pool;
+ 32. host_tier_lossless — fp32 cut depth: prefix caching with a host KV
+               tier on 16 blocks, four prompts and the same four again:
+               blocks spill and restore (each restore's checksum checked
+               in ``apply_host_transfers``), streams equal a run without
+               the tier.
 
 Phase 2 also holds ``flash_attention`` against its plain version (fp32 with
 TF32 off on the CUDA-core kernel, and bf16 on the tensor-core kernel) and
@@ -934,7 +952,10 @@ def phase_elastic_full(torch, params):
     return counts
 
 
-def fp32_cut(depth=4):
+FP32_DEPTH = 4   # the fp32 phases' cut: layers of the target and the draft
+
+
+def fp32_cut(depth=FP32_DEPTH):
     from repro_torch import configs
     return (configs.get_config("paper-7b").replace(num_layers=depth,
                                                    dtype="float32"),
@@ -978,23 +999,32 @@ def phase_lossless(torch, params):
          requests=len(out["ar"]), equal=True, accepted_tokens=accepted)
 
 
-def recipe(params, *, memmgr):
-    """tests/test_paged_backend.py's elastic-pool engine recipe on the card:
-    24 blocks of 4 tokens, four requests."""
+def recipe(params, *, memmgr, blocks=24, block_size=4, chunk=None,
+           prefix_caching=False, host_blocks=None, prompt=10, out=12,
+           wave2=0, setup=None):
+    """tests/test_paged_backend.py's engine recipe on the card, at the fp32
+    cut: by default the elastic pool's (24 blocks of 4 tokens, four
+    requests).  ``chunk`` is the chunk budget, ``host_blocks`` the capacity
+    of a host KV tier; ``wave2`` more requests repeat the first four's
+    prompts once those have drained; ``setup(engine)`` runs before the
+    engine does."""
     from repro_torch.core.bandits import make_policy
     from repro_torch.models import registry
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.kv_cache import BlockManager
+    from repro_torch.serving.kv_cache import BlockManager, HostKVStore
     from repro_torch.serving.memory_manager import ElasticMemoryManager
     from repro_torch.serving.real_backend import RealBackend
     from repro_torch.serving.scheduler import ContinuousBatchingScheduler
     from repro_torch.serving.workload import tiny_requests
     cfg, dcfg = fp32_cut()
-    bm = BlockManager(24, 4)
+    bm = BlockManager(blocks, block_size, prefix_caching=prefix_caching,
+                      host_store=HostKVStore(host_blocks) if host_blocks
+                      else None)
     be = RealBackend(registry.get_model(cfg), registry.get_model(dcfg),
                      device="cuda", params=params, max_batch=4, seed=0,
                      block_manager=bm)
-    sched = ContinuousBatchingScheduler(bm, max_batch=4, watermark_frac=0.0)
+    sched = ContinuousBatchingScheduler(bm, max_batch=4, chunk_tokens=chunk,
+                                        watermark_frac=0.0)
     mm = None
     if memmgr:
         mm = ElasticMemoryManager(
@@ -1004,12 +1034,25 @@ def recipe(params, *, memmgr):
             shrink_fn=be.shrink_pools)
     eng = ServingEngine(be, sched, make_policy("nightjar", 3, seed=0), mm,
                         gamma_max=3)
-    reqs = tiny_requests(4, rate_qps=1e6, prompt_len=10, output_len=12,
+    reqs = tiny_requests(4, rate_qps=1e6, prompt_len=prompt, output_len=out,
                          vocab=cfg.vocab_size, seed=5)
-    m = eng.run(reqs, max_steps=3000)
+    reqs += repeat_wave(reqs, wave2)
+    if setup is not None:
+        setup(eng)
+    m = eng.run(reqs, max_steps=3000, record_timeline=True)
     outs = streams(eng, reqs)
     check_run(m, reqs, outs, cfg.vocab_size)
     return outs, m
+
+
+def repeat_wave(reqs, n):
+    """``n`` more requests, long after ``reqs`` have drained, asking the
+    prompts of ``reqs`` again in turn (a retried batch)."""
+    import dataclasses
+    return [dataclasses.replace(
+        r, req_id=len(reqs) + i, arrival=r.arrival + 1e4,
+        prompt_tokens=list(r.prompt_tokens))
+        for i, r in ((i, reqs[i % len(reqs)]) for i in range(n))]
 
 
 def phase_elastic(params):
@@ -1021,6 +1064,232 @@ def phase_elastic(params):
     assert managed == plain, "elastic-pool streams differ from unmanaged"
     emit("elastic", offload_events=m.offload_events,
          reload_events=m.reload_events, equal=True, launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# the real tier under memory pressure: chunked prefill, preempt-and-recompute
+# and the host KV tier (tests/test_torch_pressure.py, test_torch_host_tier.py)
+# ---------------------------------------------------------------------------
+
+
+def counted(run):
+    """``run()``'s result and the kernel launches it made."""
+    reset_counts()
+    out = run()
+    return out, read_counts()
+
+
+def preemption_trace(eng):
+    """Attach a trace recorder to ``eng``; the scheduler reports each
+    preemption to it."""
+    from repro_torch.serving.observability import TraceRecorder
+    eng.attach_trace(TraceRecorder())
+
+
+def preemptions(eng):
+    trace = eng.trace
+    assert trace.dropped == 0, trace.dropped
+    return sum(1 for e in trace.events if e["name"] == "preempt")
+
+
+def phase_chunked_lossless(torch, params):
+    """tests/test_paged_backend.py:398 on the card, fp32 with TF32 off at
+    the cut depth: 24-token prompts prefilled in chunks of 4, 7 and 16
+    tokens give the streams of monolithic prefill, with steps that mix
+    prefill chunks and decode rows."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    kw = dict(memmgr=False, blocks=256, block_size=8, prompt=24, out=8)
+    (mono, _), counts = counted(lambda: recipe(params, **kw))
+    assert counts["paged_attention"] > 0, counts
+    runs = {"monolithic": {"launches": counts}}
+    for chunk in (4, 7, 16):
+        (got, m), counts = counted(lambda: recipe(params, chunk=chunk, **kw))
+        # steps that carried prefill chunks and decode rows together
+        mixed = sum(1 for r in m.timeline if r["prefill_tokens"] and r["B"])
+        assert got == mono, f"chunk {chunk} stream != monolithic"
+        assert mixed > 0 and counts["paged_attention"] > 0, (chunk, counts)
+        runs[f"chunk {chunk}"] = {"mixed_steps": mixed, "launches": counts}
+    emit("chunked_lossless", model=f"paper-7b full width, {FP32_DEPTH} "
+         "target + draft layers, fp32, TF32 off", requests=4,
+         prompt_tokens=24, equal=True, runs=runs,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_preempt_lossless(torch, params):
+    """tests/test_paged_backend.py:411 on the card (the reference does not
+    finish it, ROADMAP C15): 10 blocks of 4 tokens under four requests of
+    10 + 16 tokens, chunks of 6, force preempt-and-recompute; every
+    request finishes with the streams of a roomy pool."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    roomy, _ = recipe(params, memmgr=False, blocks=256, block_size=8,
+                      out=16)
+    engines = []
+
+    def setup(eng):
+        preemption_trace(eng)
+        engines.append(eng)
+    (squeezed, m), counts = counted(lambda: recipe(
+        params, memmgr=False, blocks=10, block_size=4, chunk=6, out=16,
+        setup=setup))
+    n_preempt = preemptions(engines.pop())
+    assert squeezed == roomy, "squeezed streams != roomy streams"
+    assert n_preempt > 0 and counts["paged_attention"] > 0, \
+        (n_preempt, counts)
+    emit("preempt_lossless", model=f"paper-7b full width, {FP32_DEPTH} "
+         "target + draft layers, fp32, TF32 off", blocks=10, block_size=4,
+         requests_finished=len(m.requests), preemptions=n_preempt,
+         equal=True, launches=counts, seconds=time.perf_counter() - t0)
+
+
+def phase_host_tier_lossless(torch, params):
+    """The host KV tier on the card, fp32 with TF32 off at the cut depth:
+    prefix caching on 16 blocks of 4 tokens with a ``HostKVStore`` of 64
+    blocks, four 12-token prompts of 8 output tokens, then the same four
+    prompts again.  The cache spills the blocks it evicts and the second
+    wave restores them; every restore passes the record's checksum
+    (``apply_host_transfers`` verifies it), and the streams equal a run
+    without the host tier."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    kw = dict(memmgr=False, blocks=16, block_size=4, chunk=8,
+              prefix_caching=True, prompt=12, out=8, wave2=4)
+    verified, draining, backends = [], [], []
+
+    def setup(eng):
+        # count the checksum checks made while apply_host_transfers drains
+        # the restores (match_prefix checks each record once before)
+        be, hs = eng.backend, eng.scheduler.bm.host_store
+
+        def verify(h, check=hs.verify):
+            ok = check(h)
+            if draining:
+                verified.append(ok)
+            return ok
+
+        def apply_host_transfers(drain=be.apply_host_transfers):
+            draining.append(True)
+            try:
+                drain()
+            finally:
+                draining.pop()
+        hs.verify, be.apply_host_transfers = verify, apply_host_transfers
+        backends.append(be)
+    (got, m), counts = counted(lambda: recipe(params, host_blocks=64,
+                                              setup=setup, **kw))
+    del backends.pop().apply_host_transfers   # no wrapper keeps it alive
+    plain, _ = recipe(params, **kw)
+    host = {k: v for k, v in m.host.items() if not k.endswith("_s")}
+    assert got == plain, "host-tier streams != streams without it"
+    assert host["spilled_blocks"] > 0 and host["restores"] > 0, host
+    assert len(verified) == host["restores"] and all(verified), verified
+    assert counts["paged_attention"] > 0, counts
+    if m.prefix["forks"]:
+        assert counts["migrate_blocks"] > 0, counts
+    emit("host_tier_lossless", model=f"paper-7b full width, {FP32_DEPTH} "
+         "target + draft layers, fp32, TF32 off", blocks=16, block_size=4,
+         host_blocks=64, requests_finished=len(m.requests), host=host,
+         checksums_verified=len(verified), prefix=m.prefix, equal=True,
+         launches=counts, seconds=time.perf_counter() - t0)
+
+
+PRESSURE_BLOCKS = 12   # blocks of 8 tokens: two requests' worth at a time
+
+
+def phase_pressure_serve(torch, params, serve_outs):
+    """The real tier under memory pressure at full width and depth, bf16,
+    on the serve's weights: ``build_real_engine``'s pieces with a host KV
+    tier (``kv_offload``: a ``HostKVStore`` of four times the pool),
+    prefix caching and a chunk budget of 16, on a pool cut to
+    PRESSURE_BLOCKS blocks, without the elastic memory manager (it would
+    grow the pool out of the pressure).  The serve's eight requests, then
+    their prompts again once they have drained: the pool preempts, the
+    prefix cache spills what it evicts and the second wave restores it.
+    Every request finishes at its full length; prints the preemptions,
+    the blocks spilled and restored with their ms and GB/s (host clock
+    around a synchronise; pageable host memory) and the part of it spent
+    on the records' checksums, tokens/s, peak memory and the launches."""
+    from repro_torch import configs
+    from repro_torch.core.bandits import make_policy
+    from repro_torch.launch.serve import BLOCK_SIZE, GAMMA_MAX, MAX_BATCH
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import BlockManager, HostKVStore
+    from repro_torch.serving.real_backend import make_real_backend
+    from repro_torch.serving.scheduler import ContinuousBatchingScheduler
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("paper-7b").replace(dtype="bfloat16")
+    dcfg = configs.get_draft_config("paper-7b").replace(dtype="bfloat16")
+    bm = BlockManager(PRESSURE_BLOCKS, BLOCK_SIZE, prefix_caching=True,
+                      host_store=HostKVStore(4 * PRESSURE_BLOCKS))
+    be = make_real_backend(registry.get_model(cfg), registry.get_model(dcfg),
+                           device="cuda", params=params, max_batch=MAX_BATCH,
+                           seed=0, block_manager=bm)
+    sched = ContinuousBatchingScheduler(bm, max_batch=MAX_BATCH,
+                                        chunk_tokens=16)
+    eng = ServingEngine(be, sched, make_policy("nightjar", GAMMA_MAX, seed=0),
+                        None, gamma_max=GAMMA_MAX)
+    preemption_trace(eng)
+    checksum = {"seal": [0, 0.0], "verify": [0, 0.0]}   # calls, seconds
+    store = bm.host_store
+    for name in checksum:
+        def timed(h, fn=getattr(store, name), acc=checksum[name]):
+            t = time.perf_counter()
+            try:
+                return fn(h)
+            finally:
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t
+        setattr(store, name, timed)
+    first = requests(cfg.vocab_size)
+    reqs = first + repeat_wave(first, len(first))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = eng.run(reqs, max_steps=20000, record_timeline=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    outs = streams(eng, reqs)
+    check_run(m, reqs, outs, cfg.vocab_size)
+    hs = store.stats
+    n_preempt = preemptions(eng)
+    assert n_preempt > 0 and hs["spilled_blocks"] > 0 and hs["restores"] > 0, \
+        (n_preempt, hs)
+    assert counts["paged_attention"] > 0, counts
+    if m.prefix["forks"]:
+        assert counts["migrate_blocks"] > 0, counts
+    block_bytes = be.tkv.bytes_per_block + be.dkv.bytes_per_block
+    spill_bytes = hs["spilled_blocks"] * block_bytes
+    restore_bytes = hs["restores"] * block_bytes
+    equal = sum(a == b for r in first
+                for a, b in zip(outs[r.req_id], serve_outs[r.req_id]))
+    emit("pressure_serve", model="paper-7b full width and depth, bf16",
+         blocks=PRESSURE_BLOCKS, block_size=BLOCK_SIZE,
+         host_blocks=4 * PRESSURE_BLOCKS, block_bytes=block_bytes,
+         requests_finished=len(m.requests), preemptions=n_preempt,
+         spilled_blocks=hs["spilled_blocks"], restored_blocks=hs["restores"],
+         spill_ms=1e3 * hs["spill_s"], restore_ms=1e3 * hs["restore_s"],
+         spill_gb_per_s=spill_bytes / hs["spill_s"] / 1e9,
+         restore_gb_per_s=restore_bytes / hs["restore_s"] / 1e9,
+         # seal runs inside spill_ms; verify once at match time and once
+         # inside restore_ms for each restored block
+         checksum_calls_ms={k: [n, 1e3 * t] for k, (n, t) in
+                            checksum.items()},
+         prefix=m.prefix, wall_s=wall, output_tokens=m.total_tokens,
+         tokens_per_s=m.total_tokens / wall,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         spec=m.spec_summary(), launches=counts,
+         first_wave_tokens_equal_to_serve=equal,
+         tokens_compared=sum(len(outs[r.req_id]) for r in first),
+         seconds=time.perf_counter() - t_phase)
+    del eng, be
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2913,6 +3182,8 @@ def main() -> int:
     by_path["dense_serve"] = phase_dense_serve(torch, full_params)
     by_path["disagg_serve"] = phase_disagg_serve(torch, full_params,
                                                  serve_outs)
+    by_path["pressure_serve"] = phase_pressure_serve(torch, full_params,
+                                                     serve_outs)
     phase_cswitch(torch, full_params[1])
     del full_params
     torch.cuda.empty_cache()
@@ -2932,6 +3203,9 @@ def main() -> int:
     phase_elastic(params)
     phase_dense_lossless(torch, params)
     phase_disagg_lossless(torch, params)
+    phase_chunked_lossless(torch, params)
+    phase_preempt_lossless(torch, params)
+    phase_host_tier_lossless(torch, params)
     del params
     torch.cuda.empty_cache()
     phase_moe_lossless(torch)

@@ -501,23 +501,32 @@ class ServingEngine:
 
     def _reserve_kv(self, seqs: List[Sequence], gamma: int) -> List[Sequence]:
         """Physical KV reservation (paged real backend): grow block tables to
-        cover this step's gamma+1 writes BEFORE executing; sequences whose
-        reservation fails are preempted (recompute policy) so no paged write
-        can ever land in another sequence's blocks.  Backends without a
+        cover this step's gamma+1 writes BEFORE executing, so no paged write
+        can ever land in another sequence's blocks.  While a reservation
+        fails, the youngest running sequence (lowest class, then youngest:
+        the scheduler's own guard) is preempted (recompute policy), so only
+        work younger than the sequences asking is displaced; a sequence
+        alone in the pool instead sits the step out with its KV kept, since
+        its recompute would need the same blocks.  Backends without a
         ``reserve`` hook (simulated / dense slots) skip this entirely."""
         reserve = getattr(self.backend, "reserve", None)
         if reserve is None or not seqs:
             return seqs
+        sched = self.scheduler
         while seqs:
             failed = reserve(seqs, gamma)
             if not failed:
                 break
-            # preempt ONE victim (lowest class then youngest among the
-            # failed, matching the recompute policy) and retry: its
-            # released blocks often cover the rest
-            victim = max(failed, key=self.scheduler._age_key)
-            self.scheduler.preempt(victim)
-            seqs = [s for s in seqs if s in self.scheduler.running]
+            # the reference preempts the youngest FAILED sequence: an elder
+            # whose growth the younger ones' blocks block, and no sequence
+            # finishes (ROADMAP C15).  The victim may be mid-prefill, outside
+            # ``seqs``.
+            victim = max(sched.running, key=sched._age_key)
+            if len(sched.running) == 1:
+                seqs = [s for s in seqs if s is not victim]
+                continue
+            sched.preempt(victim)
+            seqs = [s for s in seqs if s in sched.running]
         return seqs
 
     def _drain_host_transfers(self) -> float:
@@ -859,6 +868,11 @@ class ServingEngine:
         # 4. physical KV reservation for the decode rows (chunk rows were
         #    reserved block-by-block at schedule time), then switching cost
         decode = self._reserve_kv(decode, gamma)
+        # a reservation may have preempted a sequence with a chunk in this
+        # batch: its blocks are gone, so its chunk does not run
+        alive = {id(s) for s in self.scheduler.running}
+        batch.prefill_chunks = [(s, n) for s, n in batch.prefill_chunks
+                                if id(s) in alive]
         B = len(decode)
         delta_max = max((s.delta for s in decode), default=0)
         switched_on = (self.prev_gamma_effective == 0 and gamma > 0)

@@ -134,24 +134,29 @@ def _cfgs():
 
 def _run(pkg, *, policy, params=None, blocks=256, block_size=8, chunk=None,
          prefix_caching=False, template=0, memmgr=False, prompt=10, out=8,
-         wave2=0, watch=None):
+         wave2=0, repeat=False, host_store=None, watch=None):
     """The reference's engine recipe (tests/test_paged_backend.py) through
     one package; returns streams, metrics and the backend.  ``policy`` is a
     name or a policy object; ``wave2`` more requests arrive once the first
-    four have drained; ``watch(backend, memory_manager)`` runs before the
-    engine does."""
+    four have drained, with the first wave's prompts in turn if ``repeat``;
+    ``host_store`` is the capacity in blocks of a host KV tier;
+    ``watch(backend, memory_manager)`` runs before the engine does."""
     jt, jd, tt, td = _cfgs()
     if pkg == "jax":
         target, draft = jregistry.get_model(jt), jregistry.get_model(jd)
         bm = jkv.BlockManager(blocks, block_size,
-                              prefix_caching=prefix_caching)
+                              prefix_caching=prefix_caching,
+                              host_store=jkv.HostKVStore(host_store)
+                              if host_store else None)
         be = JBackend(target, draft, max_batch=4, max_seq=96, seed=0,
                       block_manager=bm)
         mk = (JSched, JMM, JEngine, jmake_policy, jtiny)
     else:
         target, draft = registry.get_model(tt), registry.get_model(td)
         bm = kv_cache.BlockManager(blocks, block_size,
-                                   prefix_caching=prefix_caching)
+                                   prefix_caching=prefix_caching,
+                                   host_store=kv_cache.HostKVStore(
+                                       host_store) if host_store else None)
         be = RealBackend(target, draft, device="cpu", params=params,
                          max_batch=4, max_seq=96, seed=0, block_manager=bm)
         mk = (ContinuousBatchingScheduler, ElasticMemoryManager,
@@ -171,9 +176,11 @@ def _run(pkg, *, policy, params=None, blocks=256, block_size=8, chunk=None,
                 vocab=target.cfg.vocab_size, seed=5, template_len=template)
     later = tiny(wave2, rate_qps=1e6, prompt_len=prompt, output_len=out,
                  vocab=target.cfg.vocab_size, seed=6) if wave2 else []
-    for r in later:
+    for i, r in enumerate(later):
         r.req_id += len(reqs)
         r.arrival += 1e4      # long after the first wave has drained
+        if repeat:
+            r.prompt_tokens = list(reqs[i % len(reqs)].prompt_tokens)
     reqs += later
     if watch is not None:
         watch(be, mm)

@@ -7,13 +7,12 @@
 
 ``--kernels``: the kernel rows of ``chip_smoke.py`` — paged attention at the
 four serve shapes and at 512 / 1,024 / 2,048 tokens of context, flash
-attention at its timed shapes, the flash backward at its five timed shapes
-(where the tree's backward takes the head_dim), block migration over the
-serve's four
-page tensors (a CoW fork, contractions of 256 and 2,048 blocks) and on the
-target pool alone — each timed by a worker process that imports the
-kernels of one tree (built from that tree's sources), in the order parent,
-change, change, parent, twice.  Both trees get the same seeded inputs.
+attention at its timed shapes, the flash backward at its five timed shapes,
+block migration over the serve's four page tensors (a CoW fork,
+contractions of 256 and 2,048 blocks) and on the target pool alone —
+each timed by a worker process that imports the kernels of one tree
+(built from that tree's sources), in the order parent, change, change,
+parent, twice.  Both trees get the same seeded inputs.
 Both time the four-tensor rows as four single-tensor calls; this tree also
 as one four-tensor call, and the fork's host time of both forms.  One JSON
 line per shape: each tree's times, their medians and the ratio change /
@@ -79,13 +78,9 @@ def worker(tree: Path) -> None:
                                            prefix_len=prefix),
             flush=flush, iters=50)
     del q, k, v
-    # the flash backward at chip_smoke's FLASH_GRAD_TIMED shapes, where the
-    # tree's backward takes the head_dim (an older backward took 64 / 128)
+    # the flash backward at chip_smoke's FLASH_GRAD_TIMED shapes
     import repro_torch.kernels.flash_attention as fa
-    bwd_dims = getattr(fa, "BWD_HEAD_DIMS", fa.HEAD_DIMS)
     for label, B, S, H, KH, D, prefix in cs.FLASH_GRAD_TIMED:
-        if D not in bwd_dims:
-            continue
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16) for shape in ((B, S, H, D), (B, S, KH, D),
                                           (B, S, KH, D), (B, S, H, D)))
