@@ -23,7 +23,10 @@ The sim tier takes every flag of the reference's (``--replicas``,
 ``--brownout``, ``--qa-frac``, ``--gamma-max``, ``--max-batch``, ``--slo``,
 the datasets) and prints the same summary for the same arguments;
 ``--hw`` offers ``h100-sxm`` (the default), ``rtx-4090`` and ``a100-40g``.
-``--trace`` / ``--trace-format`` / ``--metrics-out`` work on both tiers.
+``--trace`` / ``--trace-format`` / ``--metrics-out`` work on both tiers; on
+the real tier the trace is stamped with ``time.perf_counter`` (wall time,
+not the engine's sum of backend latencies) and holds each step's phase
+spans.
 Unlike the reference, whose default tier is ``sim``, the default here is
 ``real`` on ``--device cuda``: the entry point runs on the card unless
 asked otherwise.  The sim-only flags are refused on the real tier.
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 from typing import Optional, Tuple
 
 from .. import configs
@@ -261,7 +265,8 @@ def main():
     trace_rec = None
     if args.trace or args.metrics_out:
         from ..serving.observability import TraceRecorder
-        trace_rec = TraceRecorder()
+        trace_rec = TraceRecorder(
+            clock=time.perf_counter if args.tier == "real" else None)
 
     if args.tier == "sim":
         metrics = _run_sim(ap, args, trace_rec)

@@ -108,8 +108,11 @@ class ServingEngine:
         self.record_timeline = False
         # observability seam (serving/observability.py): attach_trace wires
         # a TraceRecorder through the scheduler/block-manager; None (the
-        # default) keeps every hook a single attribute check
+        # default) keeps every hook a single attribute check.  ``spans`` is
+        # the recorder when it has a clock (wall-clock phase spans), else
+        # None
         self.trace = None
+        self.spans = None
         self._memmgr_traced = 0    # memmgr.events already copied to trace
         self._pending: List = []   # heap of (arrival, req_id, Request)
         # incoming prefilled requests migrating from a prefill-pool replica
@@ -133,13 +136,19 @@ class ServingEngine:
     def attach_trace(self, trace) -> None:
         """Wire a :class:`observability.TraceRecorder` through this engine
         and the seams that emit events below it (scheduler preemptions,
-        block-manager spill/restore).  The context closures read the LIVE
+        block-manager spill/restore).  A recorder with a clock also records
+        the step's phase spans, here and in a backend with a ``spans``
+        attribute (``RealBackend``).  The context closures read the LIVE
         clock/replica-id, so a cluster may attach before assigning replica
         ids.  ``None`` detaches everything.  The closures hold the engine
         weakly: the scheduler and block manager are the engine's own, so a
         strong reference would make a cycle that keeps the engine, and a
         real backend's weights, alive after its last user drops it."""
         self.trace = trace
+        self.spans = (trace if trace is not None and trace.enabled
+                      and trace.clock is not None else None)
+        if hasattr(self.backend, "spans"):
+            self.backend.spans = self.spans
         ctx = None
         if trace is not None:
             me = weakref.ref(self)
@@ -164,6 +173,8 @@ class ServingEngine:
         without touching the manager itself."""
         evs = self.memmgr.events
         if len(evs) > self._memmgr_traced:
+            # a recorder with a clock stamps the copy, not ``e.at`` (the
+            # engine's own clock)
             for e in evs[self._memmgr_traced:]:
                 args = {"latency": e.latency}
                 args.update(e.detail)
@@ -178,14 +189,19 @@ class ServingEngine:
         """Enqueue a request; admitted once the clock reaches its arrival."""
         heapq.heappush(self._pending, (req.arrival, req.req_id, req))
         tr = self._tracer()
-        if tr is not None:
-            # queue time starts at arrival (e2e latency's origin), not at
-            # the submit call — a crash-recovery resubmission of an already
-            # open request folds into its existing lane instead
-            tr.req_submit(req.req_id, max(req.arrival, 0.0),
-                          self.replica_id, priority=req.priority,
-                          prompt_len=req.prompt_len,
-                          output_len=req.output_len)
+        if tr is not None and (tr.clock is None or req.arrival <= self.clock):
+            # queue time starts at arrival (e2e latency's origin).  A
+            # recorder with a clock stamps the call, or, for an arrival the
+            # engine's clock has not reached, the step that drains it
+            self._trace_submit(tr, req)
+
+    def _trace_submit(self, tr, req: Request) -> None:
+        """Open ``req``'s queue lane; a crash-recovery resubmission of an
+        already open request, or a lane already in ``queue``, folds into
+        its existing lane instead."""
+        tr.req_submit(req.req_id, max(req.arrival, 0.0), self.replica_id,
+                      priority=req.priority, prompt_len=req.prompt_len,
+                      output_len=req.output_len)
 
     @property
     def num_pending(self) -> int:
@@ -272,8 +288,14 @@ class ServingEngine:
     # pieces shared by the monolithic and hybrid step paths
     # ------------------------------------------------------------------
     def _drain_arrivals(self) -> None:
+        sp = self.spans
         while self._pending and self._pending[0][0] <= self.clock:
-            self.scheduler.add_request(heapq.heappop(self._pending)[2])
+            req = heapq.heappop(self._pending)[2]
+            if sp is not None:
+                # on the wall clock the lane opens when the engine sees the
+                # arrival (a no-op where the submit already opened it)
+                self._trace_submit(sp, req)
+            self.scheduler.add_request(req)
         while self._handoffs and self._handoffs[0][0] <= self.clock:
             _, _, req, payload = heapq.heappop(self._handoffs)
             self._adopt_prefilled(req, payload)
@@ -664,13 +686,34 @@ class ServingEngine:
 
     # ------------------------------------------------------------------
     def step(self, now: Optional[float] = None) -> Optional[StepReport]:
-        """Advance the engine by one iteration of the Figure-4 loop."""
-        if self.scheduler.chunk_tokens is not None:
-            return self._step_hybrid(now)
+        """Advance the engine by one iteration of the Figure-4 loop.  With
+        a clocked recorder attached the call is one ``step`` span, of kind
+        ``decode``, ``mixed`` (a prefill ran) or ``idle``."""
+        hybrid = self.scheduler.chunk_tokens is not None
+        body = self._step_hybrid if hybrid else self._step_mono
+        sp = self.spans
+        if sp is None:
+            return body(now)
+        sp.open("step", self.replica_id)
+        rep = None
+        try:
+            rep = body(now)
+        finally:
+            sp.close_step(
+                "idle" if rep is None or rep.kind == "idle" else
+                "mixed" if rep.prefill_tokens or (rep.admitted and not hybrid)
+                else "decode")
+        return rep
+
+    def _step_mono(self, now: Optional[float]) -> Optional[StepReport]:
+        """One iteration with monolithic prefill of the admitted prompts."""
         if now is not None and now > self.clock:
             self.clock = now
         m = self.metrics
         t_start = self.clock
+        sp = self.spans
+        if sp is not None:
+            sp.open("engine.admit")
 
         # 1. arrivals up to now; reap expired deadlines BEFORE dispatch so
         #    a dead-on-arrival request never consumes prefill compute
@@ -682,6 +725,14 @@ class ServingEngine:
 
         admitted = self.scheduler.schedule()
         if admitted:
+            if sp is not None:
+                sp.switch("engine.execute")
+                if tr is not None:
+                    # on the wall clock the prefill stage starts before the
+                    # prefill runs (the stamp below re-enters it: a no-op)
+                    for s in admitted:
+                        tr.req_stage(s.req_id, self.clock, "prefill",
+                                     self.replica_id)
             t_prefill0 = self.clock
             t = self.backend.prefill(admitted, with_draft=draft_ok)
             self.clock += self._faulty(t)
@@ -713,6 +764,8 @@ class ServingEngine:
         delta_max = max((s.delta for s in running), default=0)
 
         # 2. elastic memory triggers
+        if sp is not None:
+            sp.switch("engine.memmgr")
         if self.memmgr is not None:
             self.memmgr.step(
                 self.clock,
@@ -724,13 +777,20 @@ class ServingEngine:
 
         # 3. arm selection (brownout stage >= spec_off forces gamma -> 0
         #    fleet-wide — the paper's MAB-disable recast as overload control)
+        if sp is not None:
+            sp.switch("engine.plan")
         if draft_ok and not self.spec_forced_off:
             gamma = self.policy.select(B, delta_max=delta_max)
         else:
             gamma = 0
 
         # 4. physical KV reservation, then switching cost (draft catch-up)
+        if sp is not None:
+            sp.switch("engine.reserve")
+            n_run = self.scheduler.num_running
         running = self._reserve_kv(running, gamma)
+        if sp is not None:
+            sp.close(preempted=n_run - self.scheduler.num_running)
         if not running:
             return StepReport("idle", t_start, self.clock,
                               admitted=len(admitted))
@@ -738,6 +798,8 @@ class ServingEngine:
         delta_max = max((s.delta for s in running), default=0)
         switched_on = (self.prev_gamma_effective == 0 and gamma > 0)
         if switched_on and any(s.delta > 0 for s in running):
+            if sp is not None:
+                sp.open("engine.catchup")
             t_catch = self.backend.draft_catchup(running)
             self.clock += self._faulty(t_catch)
             for s in running:
@@ -746,10 +808,16 @@ class ServingEngine:
                 tr.instant("engine", "draft_catchup", self.clock,
                            replica=self.replica_id,
                            args={"delta_max": delta_max, "batch": B})
+            if sp is not None:
+                sp.close()
 
         # 5. execute
+        if sp is not None:
+            sp.open("engine.execute")
         t_exec0 = self.clock
         out = self.backend.step(running, gamma)
+        if sp is not None:
+            sp.switch("engine.commit")
         out.latency = self._faulty(out.latency)
         self.clock += out.latency
         total_committed = int(sum(out.n_committed))
@@ -799,6 +867,9 @@ class ServingEngine:
             self.clock = now
         m = self.metrics
         t_start = self.clock
+        sp = self.spans
+        if sp is not None:
+            sp.open("engine.admit")
 
         # 1. arrivals up to now; reap expired deadlines BEFORE dispatch so
         #    a dead-on-arrival request never consumes chunk budget
@@ -847,6 +918,8 @@ class ServingEngine:
         delta_max = max((s.delta for s in decode), default=0)
 
         # 2. elastic memory triggers
+        if sp is not None:
+            sp.switch("engine.memmgr")
         if self.memmgr is not None:
             self.memmgr.step(
                 self.clock,
@@ -859,6 +932,8 @@ class ServingEngine:
         # 3. arm selection — gamma only ever applies to the decode portion,
         #    and is forced to 0 while any prefill chunk is in flight or the
         #    brownout ladder has speculation disabled fleet-wide
+        if sp is not None:
+            sp.switch("engine.plan")
         if (batch.prefill_chunks or not draft_ok or B == 0
                 or self.spec_forced_off):
             gamma = 0
@@ -867,16 +942,23 @@ class ServingEngine:
 
         # 4. physical KV reservation for the decode rows (chunk rows were
         #    reserved block-by-block at schedule time), then switching cost
+        if sp is not None:
+            sp.switch("engine.reserve")
+            n_run = self.scheduler.num_running
         decode = self._reserve_kv(decode, gamma)
         # a reservation may have preempted a sequence with a chunk in this
         # batch: its blocks are gone, so its chunk does not run
         alive = {id(s) for s in self.scheduler.running}
         batch.prefill_chunks = [(s, n) for s, n in batch.prefill_chunks
                                 if id(s) in alive]
+        if sp is not None:
+            sp.close(preempted=n_run - self.scheduler.num_running)
         B = len(decode)
         delta_max = max((s.delta for s in decode), default=0)
         switched_on = (self.prev_gamma_effective == 0 and gamma > 0)
         if switched_on and any(s.delta > 0 for s in decode):
+            if sp is not None:
+                sp.open("engine.catchup")
             t_catch = self.backend.draft_catchup(decode)
             self.clock += self._faulty(t_catch)
             for s in decode:
@@ -885,11 +967,17 @@ class ServingEngine:
                 tr.instant("engine", "draft_catchup", self.clock,
                            replica=self.replica_id,
                            args={"delta_max": delta_max, "batch": B})
+            if sp is not None:
+                sp.close()
 
         # 5. execute the fused step
+        if sp is not None:
+            sp.open("engine.execute")
         t_exec0 = self.clock
         out = self.backend.hybrid_step(batch.prefill_chunks, decode, gamma,
                                        with_draft=draft_ok)
+        if sp is not None:
+            sp.switch("engine.commit")
         out.latency = self._faulty(out.latency)
         self.clock += out.latency
         total_committed = int(sum(out.n_committed))

@@ -1,8 +1,6 @@
-"""Flight recorder: deterministic structured tracing + metrics registry.
+"""Flight recorder: structured tracing + metrics registry.
 
-Two cooperating pieces, both driven entirely by the shared *virtual* clock
-(no wall-clock reads anywhere — a trace is a pure function of config + seed,
-so two same-seed runs emit byte-identical trace files):
+Two cooperating pieces:
 
 :class:`TraceRecorder`
     Structured spans/events for one serving run.  Per-request lifecycle is
@@ -18,6 +16,21 @@ so two same-seed runs emit byte-identical trace files):
     events (brownout rung transitions, autoscale, crash/detect/recover,
     admission shed, draft offload/reload, KV spill/restore, faults).
 
+    Without a ``clock`` the recorder runs on the callers' *virtual* clock
+    (no wall-clock reads anywhere — a trace is a pure function of config +
+    seed, so two same-seed runs emit byte-identical trace files).  With a
+    ``clock`` (a callable returning seconds, e.g. ``time.perf_counter``)
+    every event is stamped with ``clock()`` when it is recorded, whatever
+    time its caller passes, and the engine and the paged backend record
+    nested phase spans (:meth:`TraceRecorder.open` /
+    :meth:`TraceRecorder.close`): the ``step`` span is the parent of the
+    engine's ``engine.*`` phases, and ``engine.execute`` of the backend's
+    ``backend.*`` phases.  Each phase is also a
+    ``torch.profiler.record_function("nightjar.<name>")`` range, so a
+    profiled slice holds the phases on the profiler's own clock beside the
+    kernels; :meth:`TraceRecorder.align_profiler` records the offset
+    between the two clocks.
+
     The recorder is attached via ``ServingEngine.attach_trace`` /
     ``ServingCluster.attach_trace`` (or the ``trace=`` kwarg of
     ``build_sim_engine`` / ``build_sim_cluster``).  Detached (the default)
@@ -27,9 +40,8 @@ so two same-seed runs emit byte-identical trace files):
     ring buffer (oldest evicted first, ``dropped`` counts evictions).
 
 :class:`MetricsRegistry`
-    Prometheus-flavoured counters / gauges / histograms with windowed
-    time-series snapshots (``snapshot``/``series``) and deterministic text
-    exposition (``exposition``) for the real tier's scrape endpoint.
+    Prometheus-flavoured counters / gauges / histograms with deterministic
+    text exposition (``exposition``) for the real tier's scrape endpoint.
 
 Exporters: ``export_jsonl`` (one sorted-key JSON object per line — the
 input format of ``benchmarks/trace_report.py``) and ``export_chrome``
@@ -39,8 +51,9 @@ thread lane, engine steps on lane 0).
 from __future__ import annotations
 
 import json
+import statistics
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 # request lifecycle stages (the waterfall axes) and terminal outcomes
 STAGES = ("queue", "prefill", "decode", "transfer", "stall")
@@ -119,14 +132,12 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Counters/gauges/histograms with windowed snapshots + Prometheus
-    text exposition.  Creation is memoized by name; re-registering a name
-    as a different type raises."""
+    """Counters/gauges/histograms with Prometheus text exposition.
+    Creation is memoized by name; re-registering a name as a different
+    type raises."""
 
-    def __init__(self, *, series_capacity: int = 4096):
+    def __init__(self):
         self._metrics: Dict[str, object] = {}
-        # windowed time-series: one row per snapshot(t), ring-bounded
-        self.series: deque = deque(maxlen=series_capacity)
 
     def _get(self, name: str, cls, *args, **kw):
         m = self._metrics.get(name)
@@ -147,18 +158,6 @@ class MetricsRegistry:
     def histogram(self, name: str, help: str = "",
                   buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(name, Histogram, help, buckets)
-
-    def snapshot(self, t: float) -> dict:
-        """Capture every metric's current value as one time-series row."""
-        row: dict = {"t": _r(t)}
-        for name, m in self._metrics.items():
-            if isinstance(m, Histogram):
-                row[name] = {"count": m.count, "sum": _r(m.sum)}
-            else:
-                row[name] = _r(m.value) if isinstance(m.value, float) \
-                    else m.value
-        self.series.append(row)
-        return row
 
     def exposition(self) -> str:
         """Prometheus text format (deterministic: insertion order, repr
@@ -190,8 +189,19 @@ class MetricsRegistry:
 # ---------------------------------------------------------------------------
 
 
+class _Span:
+    """An open phase span of a clocked recorder."""
+    __slots__ = ("name", "id", "parent", "replica", "t0", "args", "range",
+                 "profiled")
+
+    def __init__(self, name, sid, parent, replica, t0, rng, profiled):
+        self.name, self.id, self.parent = name, sid, parent
+        self.replica, self.t0, self.args = replica, t0, {}
+        self.range, self.profiled = rng, profiled
+
+
 class TraceRecorder:
-    """Bounded, deterministic span/event recorder on the virtual clock.
+    """Bounded span/event recorder, on the virtual clock or on ``clock``.
 
     Every hook early-returns when ``enabled`` is False, and every
     instrumentation site guards on the recorder being attached at all —
@@ -200,22 +210,36 @@ class TraceRecorder:
     """
 
     FLEET_PID = -1   # process lane for fleet-level (non-replica) events
+    RANGE_PREFIX = "nightjar."   # profiler ranges of the phase spans
 
     def __init__(self, *, capacity: int = EVENT_RING_CAP,
                  registry: Optional[MetricsRegistry] = None,
-                 snapshot_interval_s: float = 1.0,
-                 enabled: bool = True):
+                 enabled: bool = True,
+                 clock: Optional[Callable[[], float]] = None):
         self.enabled = enabled
         self.events: deque = deque(maxlen=capacity)
         self.dropped = 0
         self.registry = registry if registry is not None else MetricsRegistry()
-        self.snapshot_interval_s = snapshot_interval_s
-        self._next_snapshot = snapshot_interval_s
+        self.clock = clock
         # req_id -> [stage, start_t, replica]: the open stage span
         self._open: Dict[int, list] = {}
         # req_id -> arrival (for the e2e histogram at finish)
         self._arrival: Dict[int, float] = {}
         self.outcomes: Dict[int, str] = {}
+        # open phase spans, innermost last
+        self._spans: List[_Span] = []
+        self._next_span = 0
+        # (start, end) of the step spans a profiler was recording
+        self._profiled_steps: List[Tuple[float, float]] = []
+        if clock is not None:
+            import torch
+            self._range = torch.profiler.record_function
+            self._profiling = torch.autograd._profiler_enabled
+            # a process's first range costs ~1 ms inside its start, which
+            # would stretch the first profiled range past its span: pay it
+            rng = self._range(self.RANGE_PREFIX + "recorder")
+            rng.__enter__()
+            rng.__exit__(None, None, None)
 
     # -- low-level emit -------------------------------------------------
     def _emit(self, ev: dict) -> None:
@@ -229,19 +253,24 @@ class TraceRecorder:
         replica)).  Empty after a drained run — the span-balance test."""
         return {rid: tuple(v) for rid, v in self._open.items()}
 
+    def _now(self, t: float) -> float:
+        """The stamp of an event a caller times ``t``: ``clock()`` when the
+        recorder has a clock, else ``t``."""
+        return t if self.clock is None else self.clock()
+
     # -- request lifecycle ----------------------------------------------
     def req_submit(self, rid: int, t: float, replica: int, *,
                    priority: str = "interactive", prompt_len: int = 0,
                    output_len: int = 0) -> None:
-        """Open the ``queue`` stage at arrival.  A resubmission (crash
-        recovery retry) transitions the open stage back to ``queue``
-        instead of opening a second lane."""
+        """Open the ``queue`` stage at arrival (with a clock: at the call,
+        which the engine makes once its clock has reached the arrival).  A resubmission (crash recovery retry) transitions the
+        open stage back to ``queue`` instead of opening a second lane."""
         if not self.enabled:
             return
         if rid in self._open:
             self.req_stage(rid, t, "queue", replica)
             return
-        t = _r(t)
+        t = _r(self._now(t))
         self._open[rid] = ["queue", t, replica]
         self._arrival[rid] = t
         self._emit({"ph": "i", "cat": "request", "name": "submit", "t": t,
@@ -261,7 +290,7 @@ class TraceRecorder:
         always contiguous and non-negative — the partition identity."""
         if not self.enabled:
             return
-        t = _r(t)
+        t = _r(self._now(t))
         st = self._open.get(rid)
         if st is not None:
             prev_stage, t0, rep0 = st
@@ -280,7 +309,7 @@ class TraceRecorder:
         """Close the request's open span and stamp its terminal outcome."""
         if not self.enabled:
             return
-        t = _r(t)
+        t = _r(self._now(t))
         st = self._open.pop(rid, None)
         rep = replica
         if st is not None:
@@ -311,17 +340,25 @@ class TraceRecorder:
                   prefill_tokens: int = 0, draft_ok: bool = True,
                   forced_off: bool = False) -> None:
         """One decode (or hybrid) step on the engine lane: the
-        (batch, gamma, n_accepted) tuple the planner observed."""
+        (batch, gamma, n_accepted) tuple the planner observed.  With a
+        clock the open ``step`` span takes these args and is recorded when
+        the engine closes it (:meth:`close_step`)."""
         if not self.enabled:
+            return
+        args = {"B": batch, "gamma": gamma, "tokens": tokens,
+                "accepted": accepted, "prefill_tokens": prefill_tokens,
+                "draft_ok": draft_ok, "forced_off": forced_off}
+        if self.clock is not None:
+            if self._spans:
+                self._spans[0].args.update(args)
             return
         t0, t1 = _r(t0), _r(t1)
         self._emit({"ph": "X", "cat": "engine", "name": "step", "t": t0,
-                    "dur": _r(t1 - t0), "pid": replica,
-                    "args": {"B": batch, "gamma": gamma, "tokens": tokens,
-                             "accepted": accepted,
-                             "prefill_tokens": prefill_tokens,
-                             "draft_ok": draft_ok,
-                             "forced_off": forced_off}})
+                    "dur": _r(t1 - t0), "pid": replica, "args": args})
+        self._count_step(gamma, batch, tokens, accepted, t1 - t0)
+
+    def _count_step(self, gamma: int, batch: int, tokens: int,
+                    accepted: int, seconds: float) -> None:
         reg = self.registry
         reg.counter("steps_total", "engine steps executed").inc()
         reg.counter("tokens_committed_total", "committed tokens").inc(tokens)
@@ -334,11 +371,89 @@ class TraceRecorder:
         reg.gauge("batch_size", "decode batch size").set(batch)
         reg.gauge("gamma_selected", "speculative length chosen").set(gamma)
         reg.histogram("step_latency_seconds",
-                      "engine step latency").observe(t1 - t0)
-        if t1 >= self._next_snapshot:
-            reg.snapshot(t1)
-            while self._next_snapshot <= t1:
-                self._next_snapshot += self.snapshot_interval_s
+                      "engine step latency").observe(seconds)
+
+    # -- phase spans (with a clock) --------------------------------------
+    def open(self, name: str, replica: Optional[int] = None) -> None:
+        """Open the phase span ``name`` inside the innermost open one (its
+        ``parent``), on ``replica``'s lane (default: the parent's), and
+        enter its profiler range ``nightjar.<name>``.  Only a recorder
+        with a clock records phase spans."""
+        sp = self._spans
+        parent = sp[-1] if sp else None
+        if replica is None:
+            replica = parent.replica if parent is not None else 0
+        self._next_span += 1
+        rng = None
+        if self._profiling():
+            # the range records nothing while no profiler runs: skip it
+            rng = self._range(self.RANGE_PREFIX + name)
+            rng.__enter__()
+        sp.append(_Span(name, self._next_span,
+                        parent.id if parent is not None else None, replica,
+                        self.clock(), rng, parent is None and rng is not None))
+
+    def close(self, **args) -> None:
+        """Close the innermost open span; ``args`` join its record."""
+        s = self._spans.pop()
+        t1 = self.clock()
+        if s.range is not None:
+            s.range.__exit__(None, None, None)
+        a = s.args
+        a.update(args)
+        if s.profiled:
+            self._profiled_steps.append((s.t0, t1))
+        self._emit({"ph": "X", "cat": "engine" if s.parent is None
+                    else s.name.split(".")[0], "name": s.name,
+                    "t": _r(s.t0), "dur": _r(t1 - s.t0), "pid": s.replica,
+                    "id": s.id, "parent": s.parent, "args": a})
+        if s.name == "step" and "B" in a:
+            self._count_step(a["gamma"], a["B"], a["tokens"], a["accepted"],
+                             t1 - s.t0)
+
+    def switch(self, name: str, **args) -> None:
+        """Close the innermost span with ``args`` and open its sibling
+        ``name``."""
+        self.close(**args)
+        self.open(name)
+
+    def close_step(self, kind: str) -> None:
+        """Close the ``step`` span, and any phase an early return of the
+        step left open, with the step's ``kind`` (``decode``, ``mixed`` or
+        ``idle``)."""
+        while len(self._spans) > 1:
+            self.close()
+        self.close(kind=kind)
+
+    def align_profiler(self, events) -> Optional[dict]:
+        """Pair a stopped ``torch.profiler`` run's ``nightjar.step`` ranges
+        (``events``: its ``events()``) in order with the step spans
+        recorded while it ran, and record one ``clock`` instant: the offset
+        from this recorder's clock to the profiler's (the median over the
+        pairs), the pairs, the largest departure of a pair's start or end
+        from that offset and of a pair's duration from its span's.  Returns
+        the instant's args, or None without pairs."""
+        import torch
+        cpu = torch.autograd.DeviceType.CPU
+        ranges = sorted((e.time_range.start / 1e6, e.time_range.end / 1e6)
+                        for e in events
+                        if e.name == self.RANGE_PREFIX + "step"
+                        and e.device_type == cpu)
+        spans, self._profiled_steps = self._profiled_steps, []
+        pairs = list(zip(ranges, spans))
+        if not pairs:
+            return None
+        offset = statistics.median(r[0] - s[0] for r, s in pairs)
+        skew = max(max(abs(r[0] - s[0] - offset), abs(r[1] - s[1] - offset))
+                   for r, s in pairs)
+        dur = max(abs((r[1] - r[0]) - (s[1] - s[0])) for r, s in pairs)
+        args = {"offset_s": _r(offset), "pairs": len(pairs),
+                "ranges": len(ranges), "spans": len(spans),
+                "max_skew_s": _r(skew), "max_dur_diff_s": _r(dur)}
+        self._emit({"ph": "i", "cat": "clock", "name": "profiler",
+                    "t": _r(spans[0][0]), "pid": self.FLEET_PID,
+                    "args": args})
+        return args
 
     # -- point events ----------------------------------------------------
     def instant(self, cat: str, name: str, t: float, *,
@@ -346,10 +461,14 @@ class TraceRecorder:
                 ) -> None:
         """Fleet / engine / memory point event (brownout transition,
         autoscale, crash, detect, recover, shed, offload, reload, spill,
-        restore, preempt, fault...)."""
+        restore, preempt, fault...) at ``t``.  A recorder with a clock
+        stamps the call's ``clock()`` instead: an event copied later than
+        it happened (the engine's memory-manager events) takes the time of
+        the copy."""
         if not self.enabled:
             return
-        self._emit({"ph": "i", "cat": cat, "name": name, "t": _r(t),
+        self._emit({"ph": "i", "cat": cat, "name": name,
+                    "t": _r(self._now(t)),
                     "pid": self.FLEET_PID if replica is None else replica,
                     "args": {k: (_r(v) if isinstance(v, float) else v)
                              for k, v in sorted((args or {}).items())}})

@@ -23,6 +23,16 @@ the card).  It is the tier for models without a paged path — the ssm
 
 Latencies are host clock around work that ends in a device synchronise —
 what the planner learns from on this tier.
+
+With a clocked ``TraceRecorder`` attached (``ServingEngine.attach_trace``
+sets ``RealBackend.spans``), each call into the backend records its phases
+inside the engine's ``engine.execute`` span: ``backend.copies`` (host-tier
+transfers and CoW forks), ``backend.pack`` (padded operands, block tables,
+host-to-device uploads; its args count the padded positions a model call
+runs, ``positions_run``, against the real ones, ``positions_valid``),
+``backend.dispatch`` (enqueueing the model call), ``backend.sync`` (the
+wait in the device synchronise) and ``backend.unpack`` (device-to-host
+copies, per-sequence bookkeeping).
 """
 from __future__ import annotations
 
@@ -111,6 +121,8 @@ class RealBackend:
 
         self.last_token: Dict[int, int] = {}
         self.tokens_out: Dict[int, List[int]] = {}
+        # the engine's clocked recorder (phase spans), or None
+        self.spans = None
 
         self._spec = make_paged_spec_step(target, draft, sampling=sampling,
                                           temperature=temperature)
@@ -121,14 +133,37 @@ class RealBackend:
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
+    def _packed(self, model: str, run: int, valid: int) -> None:
+        """End the caller's ``backend.pack`` span with the positions the
+        model call runs and the real ones among them, and open the call's
+        ``backend.dispatch``."""
+        self.spans.switch("backend.dispatch", model=model,
+                          positions_run=run, positions_valid=valid)
+
+    def _synced(self) -> None:
+        """The device synchronise that ends a dispatch, as its own
+        ``backend.sync`` span."""
+        sp = self.spans
+        if sp is None:
+            _device.synchronize(self.device)
+            return
+        sp.switch("backend.sync")
+        _device.synchronize(self.device)
+        sp.close()
+
     def _extend_target(self, tokens, tables, start, valid) -> np.ndarray:
         """Multi-token extension + next-token sample at each row's last
         valid position (batched prefill / chunked-prefill appends fused
-        with T=1 decode rows); returns the sampled tokens on the host."""
+        with T=1 decode rows); returns the sampled tokens on the host.
+        With spans, closes the caller's ``backend.pack``."""
+        sp = self.spans
         valid_d = self._dev(valid)
+        ops = (self._dev(tokens), self._dev(tables), self._dev(start),
+               valid_d)
+        if sp is not None:
+            self._packed("target", tokens.size, int(valid.sum()))
         logits, self.tkv.pages = self.target.decode_step_paged(
-            self.tparams, self.tkv.pages, self._dev(tokens),
-            self._dev(tables), self._dev(start), valid_d)
+            self.tparams, self.tkv.pages, *ops)
         idx = (valid_d.long() - 1).clamp(min=0)
         lg = logits[torch.arange(logits.shape[0], device=self.device),
                     idx] / self.temperature
@@ -137,14 +172,24 @@ class RealBackend:
         else:
             nxt = torch.multinomial(torch.softmax(lg, dim=-1), 1,
                                     generator=self.gen)[:, 0]
-        _device.synchronize(self.device)
-        return nxt.cpu().numpy()
+        self._synced()
+        if sp is None:
+            return nxt.cpu().numpy()
+        sp.open("backend.unpack")
+        nxt = nxt.cpu().numpy()
+        sp.close()
+        return nxt
 
     def _extend_draft(self, tokens, tables, start, valid) -> None:
+        """The draft's extension over the same operands; with spans,
+        closes the caller's ``backend.pack``."""
+        ops = (self._dev(tokens), self._dev(tables), self._dev(start),
+               self._dev(valid))
+        if self.spans is not None:
+            self._packed("draft", tokens.size, int(valid.sum()))
         _, self.dkv.pages = self.draft.decode_step_paged(
-            self.dparams, self.dkv.pages, self._dev(tokens),
-            self._dev(tables), self._dev(start), self._dev(valid))
-        _device.synchronize(self.device)
+            self.dparams, self.dkv.pages, *ops)
+        self._synced()
 
     def offload_draft(self) -> None:
         self.dparams_host = tree_to(self.dparams, "cpu")
@@ -311,13 +356,22 @@ class RealBackend:
             self._ensure_alloc(s.req_id, s.request.prompt_len + 1)
             toks = list(s.request.prompt_tokens)
             rows.append((s, toks, 0, len(toks)))
+        sp = self.spans
+        if sp is not None:
+            sp.open("backend.copies")
         self._apply_pending_copies()
+        if sp is not None:
+            sp.switch("backend.pack")
         tokens, start, valid, Bb = self._fill_rows(rows)
         tables, _ = self.tkv.batch_tables(seqs, Bb)
         nxt = self._extend_target(tokens, tables, start, valid)
         do_draft = with_draft and self.draft_resident
         if do_draft:
+            if sp is not None:
+                sp.open("backend.pack")
             self._extend_draft(tokens, tables, start, valid)
+        if sp is not None:
+            sp.open("backend.unpack")
         for i, s in enumerate(seqs):
             P = s.request.prompt_len
             self.tkv.ctx[s.req_id] = P
@@ -330,6 +384,8 @@ class RealBackend:
             else:
                 self.dkv.ctx[s.req_id] = 0
                 s.delta = P
+        if sp is not None:
+            sp.close()
         return time.perf_counter() - t0
 
     def draft_catchup(self, seqs: List[Sequence]) -> float:
@@ -353,6 +409,8 @@ class RealBackend:
         if not rows:
             return 0.0
         t0 = time.perf_counter()
+        if self.spans is not None:
+            self.spans.open("backend.pack")
         tokens, start, valid, Bb = self._fill_rows(rows)
         tables, _ = self.dkv.batch_tables([r[0] for r in rows], Bb)
         self._extend_draft(tokens, tables, start, valid)
@@ -390,9 +448,14 @@ class RealBackend:
                          self.tkv.ctx[s.req_id], 1))
 
         t0 = time.perf_counter()
+        sp = self.spans
+        if sp is not None:
+            sp.open("backend.copies")
         # CoW forks queued at schedule/reserve time execute BEFORE the
         # step's writes (their cost is real step latency)
         self._apply_pending_copies()
+        if sp is not None:
+            sp.switch("backend.pack")
         tokens, start, valid, Bb = self._fill_rows(rows)
         tables, _ = self.tkv.batch_tables([r[0] for r in rows], Bb)
         nxt = self._extend_target(tokens, tables, start, valid)
@@ -403,6 +466,8 @@ class RealBackend:
             drows = [r for r in rows[:n_chunks]
                      if self.dkv.ctx.get(r[0].req_id, 0) == r[2]]
             if drows:
+                if sp is not None:
+                    sp.open("backend.pack")
                 dtokens, dstart, dvalid, Db = self._fill_rows(drows)
                 dtables, _ = self.dkv.batch_tables([r[0] for r in drows], Db)
                 self._extend_draft(dtokens, dtables, dstart, dvalid)
@@ -410,6 +475,8 @@ class RealBackend:
                     self.dkv.ctx[s.req_id] = c + n
         latency = time.perf_counter() - t0
 
+        if sp is not None:
+            sp.open("backend.unpack")
         for i, (s, _, c, n) in enumerate(rows):
             if i < n_chunks:
                 self.tkv.ctx[s.req_id] = c + n
@@ -421,6 +488,8 @@ class RealBackend:
                 self.tokens_out[s.req_id].append(int(nxt[i]))
                 self.last_token[s.req_id] = int(nxt[i])
                 self.tkv.ctx[s.req_id] = c + 1
+        if sp is not None:
+            sp.close()
         return StepOutcome(n_committed=[1] * len(decode), latency=latency)
 
     # ------------------------------------------------------------------
@@ -428,7 +497,12 @@ class RealBackend:
         if self.reserve(seqs, gamma):
             raise OutOfBlocks("decode batch not reserved — engine must "
                               "preempt before step")
+        sp = self.spans
+        if sp is not None:
+            sp.open("backend.copies")
         self._apply_pending_copies()
+        if sp is not None:
+            sp.switch("backend.pack")
         Bb = bucket_size(len(seqs))
         tables, lengths = self.tkv.batch_tables(seqs, Bb)
         last = np.zeros((Bb,), np.int32)
@@ -438,12 +512,19 @@ class RealBackend:
         t0 = time.perf_counter()
         tables_d, lengths_d = self._dev(tables), self._dev(lengths)
         last_d = self._dev(last).long()
+        if sp is not None:
+            # a gamma > 0 step runs the draft chain and the target's verify
+            # each over Bb x (gamma + 1) positions
+            self._packed("target" if gamma == 0 else "spec",
+                         Bb * (gamma + 1), len(seqs) * (gamma + 1))
         if gamma == 0:
             nxt, self.tkv.pages = self._ar(self.gen, self.tparams,
                                            self.tkv.pages, tables_d,
                                            lengths_d, last_d)
-            _device.synchronize(self.device)
+            self._synced()
             latency = time.perf_counter() - t0
+            if sp is not None:
+                sp.open("backend.unpack")
             nxt = nxt.cpu().numpy()
             n_committed = []
             for i, s in enumerate(seqs):
@@ -451,13 +532,17 @@ class RealBackend:
                 self.last_token[s.req_id] = int(nxt[i])
                 self.tkv.ctx[s.req_id] += 1
                 n_committed.append(1)
+            if sp is not None:
+                sp.close()
             return StepOutcome(n_committed=n_committed, latency=latency)
 
         res = self._spec(self.gen, self.tparams, self.dparams,
                          self.tkv.pages, self.dkv.pages, tables_d, lengths_d,
                          last_d, gamma)
-        _device.synchronize(self.device)
+        self._synced()
         latency = time.perf_counter() - t0
+        if sp is not None:
+            sp.open("backend.unpack")
         self.tkv.pages, self.dkv.pages = res.tcache, res.dcache
         toks = res.tokens.cpu().numpy()
         n_acc = res.n_accepted.cpu().numpy()
@@ -471,6 +556,8 @@ class RealBackend:
             self.tkv.ctx[s.req_id] += n_keep
             self.dkv.ctx[s.req_id] = self.tkv.ctx[s.req_id]
             n_committed.append(n_keep)
+        if sp is not None:
+            sp.close()
         return StepOutcome(n_committed=n_committed, latency=latency)
 
     # ------------------------------------------------------------------

@@ -142,10 +142,8 @@ def test_registry_exposition_matches_reference():
         h = reg.histogram("lat_seconds", buckets=(0.1, 1.0))
         for v in (0.05, 0.5, 5.0):
             h.observe(v)
-        reg.snapshot(1.0)
         return reg
     got, want = build(obs), build(jobs)
     assert got.exposition() == want.exposition()
-    assert got.snapshot(2.0) == want.snapshot(2.0)
     with pytest.raises(ValueError):
         got.gauge("a_total")
