@@ -1425,7 +1425,8 @@ class DropCounter:
     entry points set: ``decode`` (the AR step), ``verify`` (the target's
     pass of a speculative step) or ``prefill chunk`` (prefill and chunk
     appends, with any decode rows batched beside them).  Padded batch rows
-    are routed too, as the reference routes them, and count.  The wrappers
+    are routed too, as the reference routes them, and count; a packed chunk
+    call has none, and its capacity drops no slot.  The wrappers
     are taken off the backend again on exit: a wrapper of one of its bound
     methods left on it would keep the backend, and its weights, in a
     reference cycle."""

@@ -20,6 +20,9 @@ pages),
   init_paged_cache(num_blocks, block_size, device=...) -> pages
   decode_step_paged(params, pages, tokens, tables, start[, valid])
     -> (logits, pages)
+    (padded: tokens (B, T), logits (B, T, V); packed: tokens (N, 1), the
+    real tokens of R < N rows, logits (R, 1, V) at each row's last
+    position: ``transformer.decode_step_paged``)
 """
 from __future__ import annotations
 

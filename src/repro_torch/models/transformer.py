@@ -10,8 +10,10 @@ Two serving paths:
 
 * paged: pools ``(L, NB+1, bs, KH, hd)`` with the write-off ("trash") block
   last.  One function, :func:`decode_step_paged`, serves every
-  ``RealBackend`` shape: prefill (start=0), chunked-prefill appends (ragged
-  ``valid``), decode (T=1) and speculative verification (T=gamma+1).
+  ``RealBackend`` shape: padded calls — prefill (start=0), decode (T=1) and
+  speculative verification (T=gamma+1) — and packed calls, which run the
+  chunked prefill's ragged rows (chunks beside T=1 decode rows, draft
+  catch-ups) over their real positions only.
 * dense cache: ``(L, B, S, KH, hd)`` k/v plus ``length`` (the
   ``DenseSlotBackend`` tier).  :func:`prefill` runs the whole prompt through
   the full-sequence attention (the flash kernel on the card) and
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .. import device as _device
@@ -176,6 +179,16 @@ def _decode_cf(cfg) -> float:
     return max(cfg.moe_capacity_factor, 2.0)
 
 
+def _packed_cf(cfg) -> float:
+    """The capacity factor of a packed paged call: E / k, so that every
+    expert has room for all of the call's tokens and none is dropped.  A
+    padded chunk call gave its chunk's tokens the head of queues longer
+    than the chunk; packed at 2.0, a chunk's tail and the decode rows behind
+    it would drop wherever routing is uneven.  None for a dense model."""
+    return cfg.moe_num_experts / cfg.moe_top_k if cfg.moe_num_experts \
+        else None
+
+
 def apply_layer_full(cfg, layer, h, rope, *, prefix_len: int = 0):
     """Full-sequence (prefill) pass through one block: h (B, S, d) ->
     (h, k, v), with causal attention over the whole sequence and a
@@ -316,37 +329,69 @@ def _write_slots(tables, positions, valid, trash: int, block_size: int):
     return blk, positions % block_size
 
 
+def _attend(q, k_pages, v_pages, tables, lengths, runs):
+    """Paged attention of one layer.  Without ``runs`` (a padded call) one
+    launch over the (B, T) queries.  A packed call's q is (N, 1, H, D), its
+    rows' positions one after another; each run ``(r0, r1, n, off)`` of
+    rows r0..r1-1 holding n queries each, from position ``off`` of the
+    stream on, attends in one launch of (r1 - r0, n) queries."""
+    if runs is None:
+        return paged_attention(q, k_pages, v_pages, tables, lengths)
+    H, D = q.shape[2:]
+    outs = [paged_attention(q[off:off + (r1 - r0) * n].view(r1 - r0, n, H, D),
+                            k_pages, v_pages, tables[r0:r1], lengths[r0:r1])
+            .reshape(-1, 1, H, D) for r0, r1, n, off in runs]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
 def apply_layer_decode_paged(cfg, layer, h, k_pages, v_pages, tables,
-                             slots, rope, lengths):
+                             slots, rope, lengths, runs=None):
     """h (B, T, d); one layer's pages (NB+1, bs, KH, hd).  The new K/V are
     written IN PLACE at ``slots`` first, then every query attends to all
-    paged slots at or before its position."""
+    paged slots at or before its position (``runs``: a packed call's rows,
+    see :func:`_attend`)."""
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
     k_pages.index_put_(slots, k.to(k_pages.dtype))
     v_pages.index_put_(slots, v.to(v_pages.dtype))
-    o = paged_attention(q.contiguous(), k_pages, v_pages, tables, lengths)
+    o = _attend(q.contiguous(), k_pages, v_pages, tables, lengths, runs)
     h = h + attn_output(layer["attn"], o.to(h.dtype))
     x = apply_norm(cfg, h, layer["ln2"])
-    return h + _ffn(cfg, layer, x, _decode_cf(cfg))
+    cf = _decode_cf(cfg) if runs is None else _packed_cf(cfg)
+    return h + _ffn(cfg, layer, x, cf)
 
 
 def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):
-    """Extend T tokens per sequence against the paged KV pool.
+    """Extend sequences against the paged KV pool, which is updated in
+    place.  Two layouts, told apart by the operands' shapes:
 
-    tokens: (B, T) int; tables: (B, max_blocks) int32 block tables padded
-    with the trash id; start: (B,) tokens already materialised per sequence;
-    valid: (B,) count of real tokens per row (None = all T valid).  Invalid
-    tail slots write their K/V to the trash block and produce garbage
-    logits — callers read logits at index ``valid - 1``.  The pages are
-    updated in place.  Returns (logits (B, T, V) fp32, pages)."""
+    * padded, tokens (B, T) beside B rows of tables: tables (B, max_blocks)
+      int32 block tables padded with the trash id; start (B,) tokens
+      already materialised per sequence; valid (B,) count of real tokens
+      per row (None = all T valid).  Invalid tail slots write their K/V to
+      the trash block and produce garbage logits — callers read logits at
+      index ``valid - 1``.  start and valid may lie on the host.  Returns
+      (logits (B, T, V) fp32, pages).
+    * packed, tokens (N, 1) beside R < N rows of tables: the R rows' real
+      tokens one after another, with tables (R, max_blocks), start (R,) and
+      valid (R,) per row, N = sum(valid).  Only the N real positions run
+      and no slot is written to the trash block.  Returns (logits (R, 1, V)
+      fp32 at each row's last position, pages).  Pass start and valid as
+      host tensors: the layout is read from them on the host.
+
+    When N == R every row holds one token, and the two layouts are one
+    call."""
+    if tokens.shape[0] > tables.shape[0]:
+        return _decode_step_packed(cfg, params, pages, tokens, tables, start,
+                                   valid)
     B, T = tokens.shape
+    start = start.to(tokens.device)
     ar = torch.arange(T, device=tokens.device)
     positions = start.long()[:, None] + ar[None, :]               # (B, T)
     if valid is None:
         vmask = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
     else:
-        vmask = ar[None, :] < valid[:, None]
+        vmask = ar[None, :] < valid.to(tokens.device)[:, None]
     lengths = (start + T).to(torch.int32)
     tables = tables.to(torch.int32).contiguous()
     _, nb1, bs = pages["k_pages"].shape[:3]
@@ -358,4 +403,42 @@ def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):
             cfg, layer_params(params, i), h, pages["k_pages"][i],
             pages["v_pages"][i], tables, slots, rope, lengths)
     h = apply_norm(cfg, h, params["final_norm"])
+    return unembed(cfg, params, h), pages
+
+
+def _decode_step_packed(cfg, params, pages, tokens, tables, start, valid):
+    """:func:`decode_step_paged` of the packed layout.  Every token-wise op
+    (embedding, norms, projections, the MLP or the MoE layer, the K/V
+    writes) runs over the N real positions, the MoE layer taking them as
+    its call with room for all of them (:func:`_packed_cf`); attention
+    runs once per run of consecutive rows with equal query counts; the
+    unembedding only at each row's last position."""
+    dev = tokens.device
+    st = start.cpu().numpy().astype(np.int64)
+    nv = valid.cpu().numpy().astype(np.int64)
+    N, R = tokens.shape[0], len(nv)
+    if tokens.shape[1] != 1 or int(nv.sum()) != N or nv.min() < 1:
+        raise ValueError(f"decode_step_paged: a packed call takes tokens "
+                         f"(sum(valid), 1) and rows of at least one token; "
+                         f"got tokens {tuple(tokens.shape)}, valid {nv}")
+    ends = np.cumsum(nv)
+    first = ends - nv                       # each row's offset in the stream
+    row = np.repeat(np.arange(R), nv)
+    pos = st[row] + np.arange(N) - first[row]
+    idx = torch.from_numpy(np.concatenate([pos, row, ends - 1])).to(dev)
+    positions, row_d, last = idx[:N, None], idx[N:2 * N], idx[2 * N:]
+    lengths = torch.from_numpy((st + nv).astype(np.int32)).to(dev)
+    cut = np.flatnonzero(np.diff(nv)) + 1
+    runs = [(int(a), int(b), int(nv[a]), int(first[a]))
+            for a, b in zip(np.r_[0, cut], np.r_[cut, R])]
+    tables = tables.to(torch.int32).contiguous()
+    bs = pages["k_pages"].shape[2]
+    slots = (tables.long()[row_d[:, None], positions // bs], positions % bs)
+    rope = rope_for(cfg, positions)
+    h = embed_tokens(cfg, params, tokens.long())                   # (N, 1, d)
+    for i in range(cfg.num_layers):
+        h = apply_layer_decode_paged(
+            cfg, layer_params(params, i), h, pages["k_pages"][i],
+            pages["v_pages"][i], tables, slots, rope, lengths, runs)
+    h = apply_norm(cfg, h[last], params["final_norm"])             # (R, 1, d)
     return unembed(cfg, params, h), pages

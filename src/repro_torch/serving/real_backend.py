@@ -10,8 +10,12 @@ decode, speculative verification, chunked prefill, eviction and completion
 touch only int32 tables and sampled tokens — the cache tensors never
 travel.  One multi-query
 paged-attention kernel serves plain decode (T=1), speculative verify
-(T=gamma+1) and prefill / chunked-prefill appends (T=chunk), so
-``hybrid_step`` runs the chunked scheduler's mixed chunk+decode batches.
+(T=gamma+1) and prefill / chunked-prefill appends (T=chunk).  The chunked
+scheduler's ragged extensions — ``hybrid_step``'s mixed chunk + decode
+rows, for the target and the draft, and ``draft_catchup`` — are packed
+calls: one model call over exactly their rows' real positions, with logits
+only at each row's last one (``models/transformer.decode_step_paged``).
+Monolithic ``prefill`` and the pure-decode steps run padded calls.
 
 :class:`DenseSlotBackend` keeps dense ``(L, max_batch, max_seq, KH, hd)``
 caches in fixed slots: each step gathers the active slots, runs the
@@ -27,9 +31,10 @@ what the planner learns from on this tier.
 With a clocked ``TraceRecorder`` attached (``ServingEngine.attach_trace``
 sets ``RealBackend.spans``), each call into the backend records its phases
 inside the engine's ``engine.execute`` span: ``backend.copies`` (host-tier
-transfers and CoW forks), ``backend.pack`` (padded operands, block tables,
-host-to-device uploads; its args count the padded positions a model call
-runs, ``positions_run``, against the real ones, ``positions_valid``),
+transfers and CoW forks), ``backend.pack`` (step operands, block tables,
+host-to-device uploads; its args count the positions a model call runs,
+``positions_run``, against the real ones, ``positions_valid``: equal in a
+packed call),
 ``backend.dispatch`` (enqueueing the model call), ``backend.sync`` (the
 wait in the device synchronise) and ``backend.unpack`` (device-to-host
 copies, per-sequence bookkeeping).
@@ -151,22 +156,34 @@ class RealBackend:
         _device.synchronize(self.device)
         sp.close()
 
+    def _ops(self, tokens, tables, start, valid) -> tuple:
+        """A model call's operands: tokens and tables on the device, start
+        and valid on the host, where a packed call reads its row layout
+        without waiting on the device."""
+        return (self._dev(tokens), self._dev(tables), torch.from_numpy(start),
+                torch.from_numpy(valid))
+
     def _extend_target(self, tokens, tables, start, valid) -> np.ndarray:
         """Multi-token extension + next-token sample at each row's last
-        valid position (batched prefill / chunked-prefill appends fused
+        valid position (a padded prefill, or a packed call of chunks fused
         with T=1 decode rows); returns the sampled tokens on the host.
         With spans, closes the caller's ``backend.pack``."""
         sp = self.spans
-        valid_d = self._dev(valid)
-        ops = (self._dev(tokens), self._dev(tables), self._dev(start),
-               valid_d)
+        ops = self._ops(tokens, tables, start, valid)
+        # padded rows of several positions are read at their last valid
+        # one; a packed call returns each row's last position alone
+        last = (self._dev(np.maximum(valid.astype(np.int64) - 1, 0))
+                if tokens.shape[1] > 1 else None)
         if sp is not None:
             self._packed("target", tokens.size, int(valid.sum()))
         logits, self.tkv.pages = self.target.decode_step_paged(
             self.tparams, self.tkv.pages, *ops)
-        idx = (valid_d.long() - 1).clamp(min=0)
-        lg = logits[torch.arange(logits.shape[0], device=self.device),
-                    idx] / self.temperature
+        if last is None:
+            logits = logits[:, 0]
+        else:
+            logits = logits[torch.arange(logits.shape[0],
+                                         device=self.device), last]
+        lg = logits / self.temperature
         if self.sampling == "greedy":
             nxt = lg.argmax(dim=-1)
         else:
@@ -183,8 +200,7 @@ class RealBackend:
     def _extend_draft(self, tokens, tables, start, valid) -> None:
         """The draft's extension over the same operands; with spans,
         closes the caller's ``backend.pack``."""
-        ops = (self._dev(tokens), self._dev(tables), self._dev(start),
-               self._dev(valid))
+        ops = self._ops(tokens, tables, start, valid)
         if self.spans is not None:
             self._packed("draft", tokens.size, int(valid.sum()))
         _, self.dkv.pages = self.draft.decode_step_paged(
@@ -344,6 +360,19 @@ class RealBackend:
             valid[i] = nv
         return tokens, start, valid, Bb
 
+    def _pack_rows(self, rows: List[Tuple[Sequence, List[int], int, int]],
+                   kv: PagedKVRuntime
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """rows of (seq, tokens, start, n_valid), each holding exactly its
+        n_valid real tokens -> the packed call's operands: tokens (N, 1)
+        row after row, and per row the block tables of ``kv``, start and
+        n_valid."""
+        tokens = np.concatenate([np.asarray(r[1], np.int32) for r in rows])
+        start = np.asarray([r[2] for r in rows], np.int32)
+        valid = np.asarray([r[3] for r in rows], np.int32)
+        tables, _ = kv.batch_tables([r[0] for r in rows], len(rows))
+        return tokens[:, None], tables, start, valid
+
     # ------------------------------------------------------------------
     def prefill(self, seqs: List[Sequence], *, with_draft: bool) -> float:
         """Batched prefill: every admitted prompt in ONE padded extension
@@ -411,9 +440,7 @@ class RealBackend:
         t0 = time.perf_counter()
         if self.spans is not None:
             self.spans.open("backend.pack")
-        tokens, start, valid, Bb = self._fill_rows(rows)
-        tables, _ = self.dkv.batch_tables([r[0] for r in rows], Bb)
-        self._extend_draft(tokens, tables, start, valid)
+        self._extend_draft(*self._pack_rows(rows, self.dkv))
         for s, _, _, _ in rows:
             self.dkv.ctx[s.req_id] = self.tkv.ctx[s.req_id]
             s.delta = 0
@@ -424,7 +451,8 @@ class RealBackend:
                     *, with_draft: bool) -> StepOutcome:
         """One fused mixed step: prefill chunks (ragged multi-token appends
         into freshly grown blocks) batched together with the T=1 decode
-        rows in a single padded extension call."""
+        rows in a single packed extension call over their real positions
+        (and the chunks again in one packed call of the draft)."""
         if not chunks:
             if not decode:
                 return StepOutcome(n_committed=[], latency=0.0)
@@ -456,9 +484,7 @@ class RealBackend:
         self._apply_pending_copies()
         if sp is not None:
             sp.switch("backend.pack")
-        tokens, start, valid, Bb = self._fill_rows(rows)
-        tables, _ = self.tkv.batch_tables([r[0] for r in rows], Bb)
-        nxt = self._extend_target(tokens, tables, start, valid)
+        nxt = self._extend_target(*self._pack_rows(rows, self.tkv))
 
         if with_draft and self.draft_resident:
             # the draft consumes the same chunk stream to keep its KV current
@@ -468,9 +494,7 @@ class RealBackend:
             if drows:
                 if sp is not None:
                     sp.open("backend.pack")
-                dtokens, dstart, dvalid, Db = self._fill_rows(drows)
-                dtables, _ = self.dkv.batch_tables([r[0] for r in drows], Db)
-                self._extend_draft(dtokens, dtables, dstart, dvalid)
+                self._extend_draft(*self._pack_rows(drows, self.dkv))
                 for s, _, c, n in drows:
                     self.dkv.ctx[s.req_id] = c + n
         latency = time.perf_counter() - t0
