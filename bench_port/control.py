@@ -8,9 +8,10 @@ control's, seed by seed, in one process.
 For each seed, one run of the cell as ``run.py --trace 0`` makes it (the
 window at the cell's load), then the control in the program's place on
 the same sample of served requests: the plain reference computed in
-float8 e4m3 (``reference.py``, ``precision="fp8"``), the precision below
-the configuration's bfloat16, serving at each position the token it puts
-first, judged by the run's own decision (``check.decide``).  One JSON line
+float8 e4m3 (the target's architecture module's ``logits``,
+``precision="fp8"``), the precision below the configuration's bfloat16,
+serving at each position the token it puts first, judged by the run's own
+decision (``check.decide``).  One JSON line
 per seed: the program's readings of the gaps and its ``correct``, the
 control's and its ``correct`` (false where the comparison holds), and the
 tokens compared.  The benchmark's own runs never run the control.

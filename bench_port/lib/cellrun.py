@@ -2,11 +2,12 @@
 
 In order: the configuration's weights made on the device from the seed;
 the engine built at the deployment's sizes; the step shapes the traffic
-starts with warmed up (a few requests of its own draw); the traffic
-offered open loop through the lead-in and the measured window, with the
-device's peak memory counted over the window alone; the program's state
-freed; the served tokens compared with the plain reference; the metrics
-read.
+starts with warmed up (a few requests of its own draw); in a traced run,
+the program's phase spans recorded from here on; the traffic offered open
+loop through the lead-in and the measured window, with the device's peak
+memory counted over the window alone; the program's state freed; the
+served tokens compared with the target's plain reference (its
+architecture module's); the metrics read.
 """
 from __future__ import annotations
 
@@ -83,7 +84,8 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
     by the same decision (``control.py``; the benchmark's own runs never
     do)."""
     dev = torch.device(device)
-    tcfg, dcfg = model.pair(cell.config)
+    tarch, darch = model.archs(cell.config, root)
+    tcfg, dcfg = model.pair(cell.config, root)
     dep = cell.config["deployment"]
     params = model.make_pair_weights(tcfg, dcfg, seed, dev)
     log = serve.CallLog() if trace else None
@@ -110,6 +112,11 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     loop = serve.OpenLoop(engine, reqs)
+    if trace and engine.trace is None:
+        # the program's phase spans on the loop's clock, from the end of
+        # the warm-up; a recorder a caller attached already is kept
+        from repro_torch.serving.observability import TraceRecorder
+        engine.attach_trace(TraceRecorder(clock=loop.now))
     tracer = (device_trace.Tracer(lead_in + device_trace.TRACE_OFFSET_S, log)
               if trace else None)
     watch = PeakWatch(dev, lead_in, lead_in + seconds)
@@ -128,9 +135,11 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
         seconds=seconds, window_open=lead_in,
         window_close=lead_in + seconds, end=end,
         setup_s=t_traffic + lead_in - t_process, requests=loop.recs,
-        steps=loop.steps, target_sizes=model.sizes(cell.config),
+        steps=loop.steps, target_sizes=tarch.sizes(cell.config),
         trace=tracer.slice(loop) if tracer else None,
-        lateness=loop.lateness)
+        lateness=loop.lateness, arch=tarch,
+        archs={tcfg.name: tarch, dcfg.name: darch},
+        spans=engine.trace if trace else None)
     streams = serve.served_streams(engine.backend, loop.recs)
     prompts = {r.req_id: r.prompt for r in reqs}
     # free the program's state before the reference runs: the weights are
@@ -141,11 +150,12 @@ def run_cell(cell: spec.Cell, *, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     ids = check.sample(streams, prompts, seed)
     rule = cell.config["correct"]
-    sizes = model.sizes(cell.config)
-    reads, n_tok = (check.served_readings(params[0], sizes, ids, streams,
-                                          prompts)
+    sizes = run.target_sizes
+    reads, n_tok = (check.served_readings(tarch, params[0], sizes, ids,
+                                          streams, prompts)
                     if ids else ({}, 0))
-    ctl = (check.control_readings(params[0], sizes, ids, streams, prompts)
+    ctl = (check.control_readings(tarch, params[0], sizes, ids, streams,
+                                  prompts)
            if control and ids else None)
     window = stats.window_requests(run)
     return Outcome(run=run, correct=check.decide(rule, reads, n_tok),

@@ -3,10 +3,11 @@
 Once the window has closed and the program's state is freed, a sample of
 the requests the timed path served in full, drawn from the seed with the
 longest among them, goes through the plain reference once: each prompt
-with its served tokens.  Every served token is greedy, so the reference's
-logit of that token should be its best; the number compared is the widest
-gap, over every served token of the sample, by which the served token's
-logit lies below the reference's best at that position
+with its served tokens, through the target's architecture module's
+``logits`` (``archs/<arch>.py``).  Every served token is greedy, so the
+reference's logit of that token should be its best; the number compared
+is the widest gap, over every served token of the sample, by which the
+served token's logit lies below the reference's best at that position
 (``max_logit_gap``).  A configuration may compare another reading of the
 same gaps where the widest does not separate the program from the control
 (``correct.number`` in its file, against ``correct.limit``):
@@ -19,8 +20,6 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from . import reference
 
 SAMPLE = 8     # requests compared per run, the longest among them
 
@@ -77,22 +76,22 @@ def decide(rule: dict, readings: Dict[str, float], n_tok: int) -> bool:
                 <= float(rule["limit"]))
 
 
-def served_readings(params, sizes, ids, streams, prompts
+def served_readings(arch, params, sizes, ids, streams, prompts
                     ) -> Tuple[Dict[str, float], int]:
-    """(the served tokens' readings under the reference, tokens
+    """(the served tokens' readings under ``arch``'s reference, tokens
     compared)."""
     seqs, starts = sequences(ids, streams, prompts)
-    ref = reference.logits(params, sizes, seqs, starts)
+    ref = arch.logits(params, sizes, seqs, starts)
     return (readings(gaps(ref, [streams[r] for r in ids])),
             sum(len(streams[r]) for r in ids))
 
 
-def control_readings(params, sizes, ids, streams, prompts
+def control_readings(arch, params, sizes, ids, streams, prompts
                      ) -> Dict[str, float]:
     """The control's readings: the reference again in float8, and the
     gaps, under the float32 reference, of the tokens it puts first at each
     position of the same sequences."""
     seqs, starts = sequences(ids, streams, prompts)
-    ref = reference.logits(params, sizes, seqs, starts)
-    low = reference.logits(params, sizes, seqs, starts, precision="fp8")
+    ref = arch.logits(params, sizes, seqs, starts)
+    low = arch.logits(params, sizes, seqs, starts, precision="fp8")
     return readings(gaps(ref, [lg.argmax(dim=-1).tolist() for lg in low]))

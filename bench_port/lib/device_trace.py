@@ -1,11 +1,19 @@
 """The traced slice of a ``--trace 1`` run: ``torch.profiler`` over a few
 seconds of the window, read into device busy time, kernels by name and
-step, and the longest idle gaps by what the host was doing.
+step, the longest idle gaps by what the host was doing, and the idle time
+by the program's phase.
+
+The program's phase spans (a ``TraceRecorder`` with a clock, attached in
+traced runs) are also profiler ranges named ``nightjar.<phase>``, and the
+profiler copies each range onto the device's timeline.  Neither is work:
+both are kept out of busy time, kernel time, the kernel count and the
+gaps' labels, and the host ranges are read into ``idle_by_phase``.
 
 The arithmetic of busy time (the union of the device operations'
-intervals) is a copy of ``repro_torch.launch.profile_serve._busy_us``.
-The slice is short because every kernel of a launch-bound step is an
-event: a few seconds hold some hundred thousand of them.
+intervals) is a copy of ``repro_torch.launch.profile_serve._busy_us``;
+that of idle time by phase, of ``tools/span_readings.py``.  The slice is
+short because every kernel of a launch-bound step is an event: a few
+seconds hold some hundred thousand of them.
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ from typing import Dict, List, Optional, Tuple
 TRACE_OFFSET_S = 5.0    # the slice starts this long after the window opens
 TRACE_SECONDS = 3.0     # and lasts this long
 STEP_TAG = "bench_port.step#"
+PHASE_PREFIX = "nightjar."   # the program's phase spans as profiler ranges
+OUTSIDE = "outside"          # idle time under no phase range
 TOP = 10
 
 
@@ -30,6 +40,9 @@ class Slice:
     kernels_by_step: Dict[int, int] = field(default_factory=dict)
     kernel_s: Dict[str, float] = field(default_factory=dict)
     calls: list = field(default_factory=list)   # CallLog.rows()
+    # device-idle seconds of the slice under the innermost phase range
+    # (named without ``nightjar.``), ``outside`` where none covers it
+    idle_by_phase: Dict[str, float] = field(default_factory=dict)
 
 
 def union(spans: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -66,16 +79,74 @@ def gap_label(a: float, b: float, cpu, steps) -> str:
     return f"{where}: {inner[2]}" if inner else f"{where}: python"
 
 
+def innermost(ranges: List[Tuple[float, float, str]]
+              ) -> List[Tuple[float, float, str]]:
+    """Nested ranges (start, end, name) flattened into disjoint segments,
+    each named by the innermost range covering it."""
+    marks = sorted([(s, 1, i) for i, (s, _, _) in enumerate(ranges)]
+                   + [(e, 0, i) for i, (_, e, _) in enumerate(ranges)])
+    out, stack, prev = [], [], None
+    for t, opening, i in marks:
+        if stack and t > prev:
+            out.append((prev, t, ranges[stack[-1]][2]))
+        if opening:
+            stack.append(i)
+        elif i in stack:
+            stack.remove(i)
+        prev = t
+    return out
+
+
+def idle_intervals(device: List[Tuple[float, float]], lo: float, hi: float
+                   ) -> List[Tuple[float, float]]:
+    """[lo, hi) less the union of the device's busy intervals."""
+    out, at = [], lo
+    for s, e in union(device):
+        if s > at:
+            out.append((at, min(s, hi)))
+        at = max(at, e)
+    if hi > at:
+        out.append((at, hi))
+    return [(a, b) for a, b in out if b > a]
+
+
+def idle_under(idle: List[Tuple[float, float]],
+               ranges: List[Tuple[float, float, str]]) -> Dict[str, float]:
+    """Idle seconds by the innermost of ``ranges`` covering each idle
+    instant, ``outside`` for none."""
+    segs = innermost(ranges)
+    starts = [s for s, _, _ in segs]
+    out: Dict[str, float] = {}
+    for a, b in idle:
+        covered = 0.0
+        k = max(bisect.bisect_right(starts, a) - 1, 0)
+        while k < len(segs) and segs[k][0] < b:
+            s, e, name = segs[k]
+            d = min(b, e) - max(a, s)
+            if d > 0:
+                out[name] = out.get(name, 0.0) + d
+                covered += d
+            k += 1
+        out[OUTSIDE] = out.get(OUTSIDE, 0.0) + (b - a) - covered
+    return out
+
+
 def read(prof, step_kinds: Dict[int, str], calls, wall_s: float) -> Slice:
     """A stopped profiler's events read into a :class:`Slice`;
     ``step_kinds`` names each traced step by its index, ``wall_s`` is the
-    slice's length on the host clock."""
+    slice's length on the host clock.  Idle time by phase is taken over
+    the span of all the events."""
     import torch
     cuda = torch.autograd.DeviceType.CUDA
-    dev, cpu, steps = [], [], []
+    dev, cpu, steps, phases = [], [], [], []
+    lo = hi = None
     for e in prof.events():
         s, t = e.time_range.start / 1e6, e.time_range.end / 1e6
-        if e.name.startswith(STEP_TAG):
+        lo, hi = (s, t) if lo is None else (min(lo, s), max(hi, t))
+        if e.name.startswith(PHASE_PREFIX):
+            if e.device_type != cuda:
+                phases.append((s, t, e.name[len(PHASE_PREFIX):]))
+        elif e.name.startswith(STEP_TAG):
             if e.device_type != cuda:
                 steps.append((s, t, int(e.name[len(STEP_TAG):])))
         elif e.device_type == cuda:
@@ -83,6 +154,9 @@ def read(prof, step_kinds: Dict[int, str], calls, wall_s: float) -> Slice:
         elif not e.name.startswith(("cuda", "cu", "ProfilerStep")):
             cpu.append((s, t, e.name))
     out = Slice(wall_s=wall_s, calls=calls)
+    if lo is not None:
+        out.idle_by_phase = idle_under(
+            idle_intervals([(s, t) for s, t, _ in dev], lo, hi), phases)
     if not dev:
         return out
     spans = [(s, t) for s, t, _ in dev]

@@ -79,6 +79,18 @@ class Run:
     target_sizes: dict
     trace: Optional[object] = None          # device_trace.Slice
     lateness: List[float] = field(default_factory=list)
+    # the target's architecture module (``archs/<arch>.py``), and every
+    # served model's by its ``ModelConfig.name``, the target's included
+    arch: Optional[object] = None
+    archs: Dict[str, object] = field(default_factory=dict)
+    # the program's ``TraceRecorder`` of a traced run, on the loop's clock
+    # from the end of the warm-up; None in an untraced run
+    spans: Optional[object] = None
+
+    def arch_of(self, cfg):
+        """The architecture module of the model ``cfg`` (a traced call's
+        ``ModelConfig``: the target's or the draft's)."""
+        return self.archs[cfg.name]
 
 
 def build_engine(tcfg, dcfg, deployment: dict, params, device: str = "cuda",

@@ -12,7 +12,10 @@ and entries and edits nothing that is there:
 * ``cells/<workload>.json`` — a cell's offered rate and lead-in, set once
   from the knee sweep;
 * ``metrics/<metric>.py`` — one reader per metric: ``read(run)`` returns
-  the number, or None where the run has nothing to read.
+  the number, or None where the run has nothing to read;
+* ``archs/<arch>.py`` — one module per model layout, named by a
+  configuration file (``lib/model.py``): its sizes, its ``ModelConfig``,
+  its plain reference and its counts (``README.md`` states the contract).
 """
 from __future__ import annotations
 
@@ -78,20 +81,30 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
         run_seconds=int(bench["run_seconds"]))
 
 
-def load_reader(metric: str, root: Path = ROOT
-                ) -> Callable[[object], Optional[float]]:
-    """``metrics/<metric>.py``'s ``read``.  A metric's name may hold dots
-    (``decode_step_ms.steady``), so the file is loaded by path, not by
-    import name."""
-    path = Path(root) / "bench_port" / "metrics" / f"{metric}.py"
+def _load(path: Path, name: str):
+    """The module of the file ``path``, loaded by path: a name may hold
+    dots (``decode_step_ms.steady``), and a file a later change adds needs
+    no package entry."""
     spec = importlib.util.spec_from_file_location(
-        f"bench_port_metric_{metric.replace('.', '_').replace('-', '_')}",
-        path)
+        name.replace(".", "_").replace("-", "_"), path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metric: str, root: Path = ROOT
+                ) -> Callable[[object], Optional[float]]:
+    """``metrics/<metric>.py``'s ``read``."""
+    return _load(Path(root) / "bench_port" / "metrics" / f"{metric}.py",
+                 f"bench_port_metric_{metric}").read
+
+
+def load_arch(name: str, root: Path = ROOT):
+    """The architecture module ``archs/<name>.py``."""
+    return _load(Path(root) / "bench_port" / "archs" / f"{name}.py",
+                 f"bench_port_arch_{name}")
 
 
 def read_metrics(metrics: List[dict], run, root: Path = ROOT

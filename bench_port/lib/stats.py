@@ -8,8 +8,6 @@ from __future__ import annotations
 import statistics
 from typing import Iterable, List, Optional
 
-from . import flops
-
 
 def percentile(values: Iterable[float], q: int) -> Optional[float]:
     """The ``q``-th percentile (linear between order statistics, the ends
@@ -116,15 +114,16 @@ def useful_flops(run) -> float:
     multiplies by, plus attention over its context); the first output
     token comes with the prompt's last position, so output token i >= 1
     counts the position prompt_len + i - 1.  Draft work, rejected tokens,
-    padding and recomputation are overhead and count nothing."""
-    m = run.target_sizes
+    padding and recomputation are overhead and count nothing.  A token's
+    flops are the target's architecture module's ``token_flops``."""
+    m, token_flops = run.target_sizes, run.arch.token_flops
     total = 0.0
     for s in window_steps(run):
         for _, first, n in s.chunks:
-            total += sum(flops.token_flops(m, p + 1)
+            total += sum(token_flops(m, p + 1)
                          for p in range(first, first + n))
         for rid, first, n in s.served:
             plen = run.requests[rid].prompt_len
-            total += sum(flops.token_flops(m, plen + i)
+            total += sum(token_flops(m, plen + i)
                          for i in range(max(first, 1), first + n))
     return total

@@ -1,0 +1,9 @@
+"""dispatch_ms.decode: the host's time enqueueing the model calls of a
+pure-decode step: mean over the window's pure-decode steps of the sum of
+their ``backend.dispatch`` spans."""
+from bench_port.lib import spans
+
+
+def read(run):
+    return spans.decode_mean_ms(run, lambda sp, e: sum(
+        c["dur"] for c in sp.under(e["id"], "backend.dispatch")))

@@ -50,6 +50,7 @@ def main(argv=None):
     config = json.loads((ROOT / entry["file"]).read_text())
     mix = json.loads((ROOT / "bench_port" / "traffic"
                       / f"{args.traffic}.json").read_text())
+    tarch = model.archs(config)[0]
     tcfg, dcfg = model.pair(config)
     dep = config["deployment"]
     t0 = time.time()
@@ -78,7 +79,7 @@ def main(argv=None):
                         window_open=args.lead_in,
                         window_close=args.lead_in + args.seconds, end=end,
                         setup_s=0.0, requests=ol.recs, steps=ol.steps,
-                        target_sizes=model.sizes(config))
+                        target_sizes=tarch.sizes(config), arch=tarch)
         ws = stats.window_steps(run)
         q_open = next((s.waiting for s in ol.steps
                        if s.t_end >= run.window_open), 0)

@@ -9,6 +9,8 @@ from conftest import ROOT
 from bench_port.lib import device_trace, flops, spec, stats
 from bench_port.lib.serve import ReqRecord, Run, StepRecord
 
+GQA = spec.load_arch("gqa", ROOT)
+
 SIZES = {"layers": 2, "d_model": 8, "heads": 2, "kv_heads": 1,
          "head_dim": 4, "d_ff": 16, "vocab": 10, "experts": 0, "top_k": 0,
          "rope_theta": 1e4, "tied": True}
@@ -17,7 +19,8 @@ SIZES = {"layers": 2, "d_model": 8, "heads": 2, "kv_heads": 1,
 def _run(requests, steps=(), trace=None):
     return Run(seconds=10.0, window_open=5.0, window_close=15.0,
                end=20.0, setup_s=7.5, requests={r.req_id: r for r in requests},
-               steps=list(steps), target_sizes=SIZES, trace=trace)
+               steps=list(steps), target_sizes=SIZES, trace=trace, arch=GQA,
+               archs={"paper-7b": GQA})
 
 
 def _rec(i, due, times, *, out=None, window=True, admitted=-1.0,
@@ -92,8 +95,8 @@ def test_itl_p99_over_every_token_gap_inside_the_window():
 
 def test_paged_attention_need_by_hand():
     # one row: 3 cached positions, 2 new queries -> they see 4 and 5
-    f, b = flops.paged_attention_need([(3, 2)], heads=4, kv_heads=2,
-                                      head_dim=8, elem_bytes=2)
+    f, b = GQA.paged_attention_need([(3, 2)], heads=4, kv_heads=2,
+                                    head_dim=8, elem_bytes=2)
     assert f == 4 * 4 * 8 * (4 + 5)
     # K and V of 5 positions x 2 kv heads, q and out of 2 queries x 4 heads
     assert b == 2 * 8 * (2 * 2 * 5 + 2 * 4 * 2)
@@ -103,12 +106,13 @@ def test_paged_attention_need_by_hand():
 
 def test_roofline_reader_over_a_synthetic_slice():
     class Cfg:
-        dtype, num_heads, num_kv_heads, resolved_head_dim = \
-            "bfloat16", 28, 4, 128
+        name, dtype, num_heads, num_kv_heads, resolved_head_dim = \
+            "paper-7b", "bfloat16", 28, 4, 128
         num_layers = 28
     rows = [(1000, 1)] * 64
-    f, b = flops.paged_attention_need(rows, heads=28, kv_heads=4,
-                                      head_dim=128, elem_bytes=2)
+    f, b = GQA.paged_attention_need(rows, heads=28, kv_heads=4,
+                                    head_dim=128, elem_bytes=2)
+    assert GQA.attention_need(Cfg, rows, 2) == [(28, f, b)]
     need = 28 * flops.least_time(f, b)
     tr = device_trace.Slice(kernel_s={"paged_attention_kernel<bf16>": 4 * need,
                                       "gemm": 1.0},
@@ -118,7 +122,7 @@ def test_roofline_reader_over_a_synthetic_slice():
 
 
 def test_step_mfu_by_hand():
-    per_param = flops.matmul_params_per_token(SIZES)
+    per_param = GQA.matmul_params_per_token(SIZES)
     # attention 4 * d + 2 * (ff) ... hand count of the layout's weights
     d, hd = 8, 4
     attn = d * (2 + 2) * hd + 2 * hd * d

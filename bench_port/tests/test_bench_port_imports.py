@@ -12,8 +12,13 @@ SOURCES = sorted((ROOT / "bench_port").rglob("*.py"))
 
 
 def top_level_imports(path):
+    return imported(ast.parse(path.read_text(), str(path)))
+
+
+def imported(tree):
+    """Top-level names of every module ``tree`` imports, at any depth."""
     names = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -33,7 +38,22 @@ def test_the_check_compares_whole_names():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "check.py", "traffic.py", "flops.py",
-                 "stats.py"):
+    for name in ("check.py", "traffic.py", "flops.py", "stats.py"):
         assert not top_level_imports(ROOT / "bench_port" / "lib" / name) & \
             {"repro_torch"}
+
+
+ARCHS = sorted((ROOT / "bench_port" / "archs").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", ARCHS, ids=[p.stem for p in ARCHS])
+def test_an_architecture_module_imports_the_program_only_for_its_config(
+        path):
+    """Of an architecture module, only ``port_config`` (which builds the
+    port's ``ModelConfig``) may import the program: the reference and the
+    counts import nothing of it."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "port_config":
+            continue
+        assert "repro_torch" not in imported(node), (path.name, node.lineno)

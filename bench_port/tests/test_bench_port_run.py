@@ -176,16 +176,30 @@ def test_the_cli_refuses_without_a_card():
 
 
 @pytest.mark.cuda
-def test_a_traced_run_on_the_card(tiny):
+def test_a_traced_run_on_the_card(tmp_path):
+    """A traced run at tiny widths on the card, with heads of 32 (the
+    card's paged-attention kernel takes head_dim 32 / 64 / 128 / 256): the
+    device trace, the program's spans and the metrics that read them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    cell = spec.find_cell("paper7b-chat-steady", tiny)
+    root = tiny_root(tmp_path)
+    path = root / "bench_port/configs/paper-7b.json"
+    cfg = json.loads(path.read_text())
+    cfg["hidden_size"], cfg["draft"]["hidden_size"] = 128, 64
+    path.write_text(json.dumps(cfg))
+    cell = spec.find_cell("paper7b-chat-steady", root)
     out = cellrun.run_cell(cell, seed=SEED, seconds=7.0, trace=True,
-                           t_process=time.time(), device="cuda", root=tiny)
+                           t_process=time.time(), device="cuda", root=root)
     res = cellrun.result(cell, out, trace=True,
-                         kind=torch.cuda.get_device_name(0), root=tiny)
+                         kind=torch.cuda.get_device_name(0), root=root)
     assert res["correct"]
     assert res["device"]["busy_s"] > 0
     assert {"kernels_per_decode_step", "device_idle_share",
-            "paged_attn_roofline"} <= set(res["metrics"])
+            "paged_attn_roofline", "dispatch_ms.decode",
+            "engine_host_ms.decode", "idle_in_dispatch_share"} \
+        <= set(res["metrics"])
     assert 0 < res["metrics"]["paged_attn_roofline"]["value"] <= 105
+    assert out.run.trace.idle_by_phase
+    names = [n for n, _ in res["breakdown"]["device_ops"]
+             + res["breakdown"]["idle_gaps"]]
+    assert not any("nightjar." in n for n in names)
