@@ -60,6 +60,11 @@ Phases (any failed check raises, and the script exits non-zero):
                cross-attention flash calls), 8 ``decode_step``s, held
                against ``forward`` in bf16 at full depth and in fp32 at
                4 + 4 layers;
+ 16b. window_serve — the full-width, full-depth bf16 mellum2-12b-a2.5b
+               pair through ``build_real_engine``, chunk 512: eight prompts
+               of 1,100-1,800 tokens, past the 1,024-position window; the
+               21 sliding layers' windowed launches counted apart
+               (``paged_window_attention`` in the kernels line);
  17. ssm_lossless — fp32 cut depth: mamba2 AR == fixed-2 == Nightjar ==
                target-as-draft, zamba2 AR == fixed-2 == Nightjar, through
                the engine (SSM checkpoint rollback);
@@ -156,6 +161,12 @@ timing row says how many splits it used.  The new pairs' heads
 (paligemma's D = 256 with G = 8, granite's D = 64 with G = 2) are checked
 at their served shapes and at 512 / 2,048 tokens, and flash at D = 256
 with the image prefix; their timing rows stand beside the paper-7b ones.
+The windowed paged kernel (Mellum2's sliding layers: 32/4 heads of 128,
+window 1,024) is held to the plain version with the same window at decode
+(B = 16 and 64, contexts 3,072 and 8,192, split), at the window's edge, at
+verify rows and at 512-query chunks (one across the edge, unsplit), and
+timed beside the window-0 kernel on the same inputs, its bound counting
+only the positions inside each query's window.
 ``migrate_blocks`` is held bitwise against its plain version on single
 pools and on the serve's four page tensors (ids inline, at the inline cap
 and past it, 2,048 pairs, float32 beside bfloat16) and timed as one
@@ -188,6 +199,8 @@ TARGET_ATTN = dict(H=28, KH=4, D=128)          # paper-7b target
 DRAFT_ATTN = dict(H=14, KH=2, D=64)            # paper-7b draft
 PALI_ATTN = dict(H=8, KH=1, D=256)             # paligemma-3b target (MQA)
 GRANITE_ATTN = dict(H=16, KH=8, D=64)          # granite-moe-1b target
+MELLUM_ATTN = dict(H=32, KH=4, D=128)          # mellum2-12b-a2.5b target
+MELLUM_WINDOW = 1024                           # its sliding layers' window
 GRANITE, PALIGEMMA = "granite-moe-1b-a400m", "paligemma-3b"
 MAMBA2, ZAMBA2, WHISPER = "mamba2-780m", "zamba2-1.2b", "whisper-medium"
 REF_SWEEP = [(2, 4, 4, 64, 16, 3), (3, 8, 2, 64, 16, 4), (2, 8, 1, 128, 8, 5)]
@@ -245,6 +258,14 @@ PAGED_TIMED = [("target decode B=4", 1, 32),
                ("granite decode B=4", 1, 32),
                ("granite verify gamma=3 B=4", 4, 32),
                ("granite decode B=4 ctx=2048", 1, 2048)]
+# windowed paged attention at Mellum2's sliding layers (bf16, 8-position
+# blocks, window 1,024): label, B, T, context before the call
+WINDOW_TIMED = [("mellum2 window decode B=16 ctx=3072", 16, 1, 3072),
+                ("mellum2 window decode B=64 ctx=3072", 64, 1, 3072),
+                ("mellum2 window decode B=16 ctx=8192", 16, 1, 8192),
+                ("mellum2 window decode B=64 ctx=8192", 64, 1, 8192),
+                ("mellum2 window verify gamma=3 B=16 ctx=3072", 16, 4, 3072),
+                ("mellum2 window chunk T=512 ctx=3072", 1, 512, 3072)]
 # the heads of each PAGED_TIMED row, by the first word of its label
 TIMED_ATTN = {"target": TARGET_ATTN, "draft": DRAFT_ATTN,
               "paligemma": PALI_ATTN, "granite": GRANITE_ATTN}
@@ -337,19 +358,22 @@ def paged_timed_case(torch, gen, label, T, ctx):
                            dtype=torch.bfloat16, **attn)
 
 
-def attn_bound(q, k_pages, lengths, dtype_name):
+def attn_bound(q, k_pages, lengths, dtype_name, window=0):
     """Least time the card needs for one call: the bytes it must move
     (queries and outputs once, the K/V pages this call's lengths reach,
     the tables) over HBM bandwidth, against the flops over the type's
-    peak."""
+    peak.  With a ``window`` only the pages from a row's earliest window
+    start on, and each query's positions inside its window, count."""
     B, T, H, D = q.shape
     _, bs, KH, _ = k_pages.shape
     es = q.element_size()
     lens = lengths.tolist()
-    pages = sum(-(-n // bs) for n in lens)
+    first = [max(n - T - window + 1, 0) // bs if window else 0
+             for n in lens]
+    pages = sum(-(-n // bs) - f for n, f in zip(lens, first))
     nbytes = 2 * q.numel() * es + 2 * pages * bs * KH * D * es \
         + 4 * B * (pages + 1)
-    flops = sum(4 * H * D * max(n - T + t + 1, 0)
+    flops = sum(4 * H * D * min(max(n - T + t + 1, 0), window or n)
                 for n in lens for t in range(T))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -457,14 +481,89 @@ def phase_kernels(torch):
                              flush=flush),
             bound_ms=bound, bound_by=by, library_ms=None))
     mig_worst, mig_rows = phase_migrate(torch, gen, flush)
+    window_worst, window_rows = phase_window_kernels(torch, gen, flush)
     del flush
     torch.cuda.empty_cache()
-    for row in attn_rows + mig_rows:
+    for row in attn_rows + mig_rows + window_rows:
         emit("time", **row)
     err = {"paged_attention": max([attn_err["bfloat16"]]
                                   + [r["max_abs_err"] for r in attn_rows]),
-           "migrate_blocks": mig_worst}
-    return err, attn_rows, mig_rows
+           "migrate_blocks": mig_worst,
+           "paged_window_attention": window_worst}
+    return err, attn_rows, mig_rows, window_rows
+
+
+def window_case(torch, gen, *, B, T, lengths, dtype):
+    """One windowed call at Mellum2's sliding layers' heads."""
+    return attn_case(torch, gen, B=B, T=T, bs=8, lengths=lengths,
+                     dtype=dtype, **MELLUM_ATTN)
+
+
+def phase_window_kernels(torch, gen, flush):
+    """The windowed kernel (``paged_window_attention_kernel`` and, split,
+    ``paged_window_combine_kernel``) against the plain version with the
+    same window, at Mellum2's heads: decode at B = 16 and 64 over contexts
+    of 3,072 and 8,192 (split plans), contexts at the window's edge, verify
+    rows (gamma = 3) and 512-query chunks, one across the window's edge
+    (unsplit plans); then its times in bf16 beside the window-0 kernel's on
+    the same inputs."""
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    W = MELLUM_WINDOW
+    cases = [dict(B=16, T=1, lengths=[3072 - 37 * i for i in range(16)]),
+             dict(B=64, T=1, lengths=[8192 - 61 * i for i in range(64)]),
+             dict(B=64, T=1, lengths=[3072 - 29 * i for i in range(64)]),
+             dict(B=16, T=1, lengths=[8192 - 5 * i for i in range(16)]),
+             # at the window's edge, and shorter than it
+             dict(B=8, T=1, lengths=[W - 1, W, W + 1, W + 7, W + 8, W + 33,
+                                     300, 2 * W]),
+             dict(B=16, T=4, lengths=[3072 + 4 - 41 * i for i in range(16)]),
+             dict(B=4, T=4, lengths=[W + 2, W + 3, W + 4, 8192]),
+             dict(B=1, T=512, lengths=[1300]),      # across the edge
+             dict(B=1, T=512, lengths=[3072]),
+             dict(B=2, T=512, lengths=[8192, W + 512])]
+    worst, splits = {}, set()
+    for dtype_name in ("float32", "bfloat16"):
+        worst[dtype_name] = 0.0
+        for kw in cases:
+            args = window_case(torch, gen, dtype=getattr(torch, dtype_name),
+                               **kw)
+            got = paged_attention(*args, window=W)
+            splits.add(paged_attention.last_splits)
+            want = paged_attention_ref(*args, W)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), kw
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= ATOL[dtype_name], (dtype_name, kw, err)
+            worst[dtype_name] = max(worst[dtype_name], err)
+    # both plans ran: one split (the chunks) and more (decode)
+    assert 1 in splits and max(splits) > 1, splits
+    emit("check", kernel="paged_window_attention", window=W,
+         cases=len(cases), splits=sorted(splits), max_abs_err=worst,
+         atol=ATOL)
+    rows = []
+    for label, B, T, ctx in WINDOW_TIMED:
+        lens = [ctx + T - 2 * i for i in range(B)]
+        args = window_case(torch, gen, B=B, T=T, lengths=lens,
+                           dtype=torch.bfloat16)
+        err = (paged_attention(*args, window=W).float()
+               - paged_attention_ref(*args, W).float()).abs().max().item()
+        assert err <= ATOL["bfloat16"], (label, err)
+        n_splits = paged_attention.last_splits
+        bound, by = attn_bound(args[0], args[1], args[4], "bfloat16", W)
+        rows.append(dict(
+            shape=label, T=T, B=B, context=ctx, window=W, splits=n_splits,
+            max_abs_err=err,
+            ms=cuda_ms(torch, lambda: paged_attention(*args, window=W),
+                       flush=flush),
+            plain_ms=cuda_ms(torch, lambda: paged_attention_ref(*args, W),
+                             flush=flush),
+            bound_ms=bound, bound_by=by, library_ms=None,
+            window0_ms=cuda_ms(torch, lambda: paged_attention(*args),
+                               flush=flush)))
+        del args
+    torch.cuda.empty_cache()
+    return max([worst["bfloat16"]] + [r["max_abs_err"] for r in rows]), rows
 
 
 def pair_pools(torch, gen, nb1, dtypes=("bfloat16",) * 4, shapes=PAIR_POOLS):
@@ -767,6 +866,7 @@ def _wrappers():
 def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["paged_attention"].window_launches = 0
 
 
 def read_counts():
@@ -1560,6 +1660,78 @@ def serve_pair(torch, arch, *, count_drops=False):
     del params
     torch.cuda.empty_cache()
     return counts, fields
+
+
+def long_requests(vocab, n=8, seed=0):
+    """``n`` prompts of 1,100 to 1,800 distinct tokens, each past
+    Mellum2's 1,024-position window, and 16 tokens out."""
+    from repro_torch.serving.workload import tiny_requests
+    reqs = tiny_requests(n, prompt_len=1800, output_len=16, vocab=vocab,
+                         seed=seed)
+    for i, r in enumerate(reqs):
+        r.prompt_len = 1100 + 100 * (i % 8)
+        r.prompt_tokens = r.prompt_tokens[:r.prompt_len]
+    return reqs
+
+
+def phase_window_serve(torch):
+    """Mellum2-12B-A2.5B at full width and depth, bf16, through
+    ``build_real_engine`` on the paged path: ``long_requests`` in chunks of
+    512 with prefix caching, after a warm-up run on other prompts.  Its 21
+    sliding layers launch the windowed kernel, its 7 full layers and the
+    draft the window-0 one; both are counted from 0 over the measured run,
+    the windowed ones as ``paged_window_attention``."""
+    from repro_torch.configs import mellum2_12b
+    from repro_torch.configs.base import SLIDING
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch.serve import build_real_engine
+    cfg, dcfg = mellum2_12b.CONFIG, mellum2_12b.DRAFT
+    kw = dict(device="cuda", dtype="bfloat16", policy="nightjar",
+              prefix_caching=True, chunk_tokens=512, seed=0)
+    torch.cuda.empty_cache()
+    left_over = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    warm = build_real_engine(cfg, dcfg, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    warm.run(long_requests(cfg.vocab_size, n=4, seed=1), max_steps=5000)
+    params = (warm.backend.tparams, warm.backend.dparams)
+    del warm
+    engine = build_real_engine(cfg, dcfg, params=params, **kw)
+    reqs = long_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = engine.run(reqs, max_steps=5000, record_timeline=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    counts["paged_window_attention"] = paged_attention.window_launches
+    counts["paged_attention"] -= counts["paged_window_attention"]
+    outs = streams(engine, reqs)
+    check_run(m, reqs, outs, cfg.vocab_size)
+    # every target call launches the windowed kernel in each of the 21
+    # sliding layers, once per run of rows with equal query counts
+    windowed = sum(k == SLIDING for k in cfg.layer_types)
+    assert counts["paged_window_attention"] > 0 \
+        and counts["paged_window_attention"] % windowed == 0, counts
+    assert counts["paged_attention"] > 0, counts
+    assert counts["flash_attention"] == 0, counts
+    emit("window_serve", model="mellum2-12b-a2.5b full width and depth, "
+         "bf16", window=cfg.sliding_window, sliding_layers=windowed,
+         target_layers=cfg.num_layers, draft_layers=dcfg.num_layers,
+         prompt_lens=[r.prompt_len for r in reqs], setup_s=setup_s,
+         wall_s=wall, output_tokens=m.total_tokens,
+         tokens_per_s=m.total_tokens / wall,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         allocated_before_phase_bytes=left_over,
+         requests_finished=len(m.requests),
+         spec_steps=m.spec.get("spec_steps", 0), launches=counts,
+         pool_blocks=engine.backend.bm.total_blocks)
+    del engine, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_moe_serve(torch):
@@ -3126,8 +3298,8 @@ def phase_dryrun(torch):
 # ---------------------------------------------------------------------------
 
 
-def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, grad_err,
-                grad_rows, by_path):
+def kernel_line(err, attn_rows, mig_rows, window_rows, flash_err, flash_rows,
+                grad_err, grad_rows, by_path):
     """The contract's kernels line.  ``by_path`` holds each main path's
     launches (counts set to 0 just before the path, read just after);
     ``launches`` is their sum."""
@@ -3146,6 +3318,11 @@ def kernel_line(err, attn_rows, mig_rows, flash_err, flash_rows, grad_err,
               "src/repro_torch/kernels/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:117", attn_rows,
               err["paged_attention"]),
+        # the windowed launches of the same source; the reference has no
+        # window
+        entry("paged_window_attention",
+              "src/repro_torch/kernels/csrc/paged_attention.cu", None,
+              window_rows, err["paged_window_attention"]),
         entry("migrate_blocks",
               "src/repro_torch/kernels/csrc/block_migration.cu",
               "src/repro/kernels/block_migration.py:48", mig_rows,
@@ -3172,7 +3349,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card_info(torch)
     phase_build()
-    err, attn_rows, mig_rows = phase_kernels(torch)
+    err, attn_rows, mig_rows, window_rows = phase_kernels(torch)
     flash_err, flash_rows = phase_flash(torch)
     by_path = {}
     by_path["serve"], full_params, serve_outs = phase_serve(torch)
@@ -3195,6 +3372,7 @@ def main() -> int:
     by_path["hybrid_serve"] = phase_hybrid_serve(torch)
     by_path["encdec_prefix"] = {"flash_attention":
                                 phase_encdec_prefix(torch)}
+    by_path["window_serve"] = phase_window_serve(torch)
 
     from repro_torch.models import registry
     cfg, dcfg = fp32_cut()
@@ -3222,8 +3400,9 @@ def main() -> int:
     by_path["remat"] = phase_remat(torch)
     phase_dryrun(torch)
     emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps(kernel_line(err, attn_rows, mig_rows, flash_err,
-                                 flash_rows, grad_err, grad_rows, by_path)))
+    print(json.dumps(kernel_line(err, attn_rows, mig_rows, window_rows,
+                                 flash_err, flash_rows, grad_err, grad_rows,
+                                 by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -99,6 +99,57 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # --- layers of two kinds (port only: fields of :class:`WindowedConfig`) --
+    # Here class attributes, not fields, so that a config of the reference's
+    # architectures holds exactly the reference's fields: every layer
+    # attends over its whole context with one rope.
+    layer_types = ()
+    sliding_window = 0
+    yarn_factor = 0.0
+
+    def layer_window(self, i: int) -> int:
+        """The window of layer ``i``: the positions up to and including its
+        own that a query sees (0: all of them)."""
+        if self.layer_types and self.layer_types[i] == SLIDING:
+            return self.sliding_window
+        return 0
+
+
+FULL, SLIDING = "full_attention", "sliding_attention"
+
+
+@dataclass(frozen=True)
+class WindowedConfig(ModelConfig):
+    """A decoder whose layers are of two kinds (``layer_types``): full
+    attention, and sliding-window attention over the last
+    ``sliding_window`` positions, the query's own included (query p sees
+    keys p - W + 1 .. p).  The full layers' rope may be yarn's
+    (``yarn_factor`` > 0; the sliding layers keep the plain rope of
+    ``rope_theta``): inverse frequencies blended between the plain ones and
+    those divided by the factor over the band that ``yarn_beta_fast`` /
+    ``yarn_beta_slow`` rotations within ``yarn_original_max`` positions
+    mark, and cos and sin scaled by ``yarn_attention_factor``."""
+
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    yarn_factor: float = 0.0
+    yarn_original_max: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 1.0
+
+    def __post_init__(self):
+        if self.layer_types:
+            if len(self.layer_types) != self.num_layers:
+                raise ValueError(f"{self.name}: {len(self.layer_types)} "
+                                 f"layer types for {self.num_layers} layers")
+            bad = set(self.layer_types) - {FULL, SLIDING}
+            if bad:
+                raise ValueError(f"{self.name}: unknown layer types {bad}")
+            if SLIDING in self.layer_types and self.sliding_window < 1:
+                raise ValueError(f"{self.name}: sliding layers need a "
+                                 f"sliding_window of at least 1")
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

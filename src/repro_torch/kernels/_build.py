@@ -30,6 +30,8 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention_launch": [_c_void_p] * 8 + [_c_int] * 9
     + [_c_float, _c_int, _c_void_p],
+    "paged_window_attention_launch": [_c_void_p] * 8 + [_c_int] * 9
+    + [_c_float, _c_int, _c_int, _c_void_p],
     "migrate_blocks_launch": [_c_void_p, _c_int, _c_void_p, _c_void_p,
                               _c_int, _c_void_p],
     "flash_attention_launch": [_c_void_p] * 5 + [_c_int] * 8

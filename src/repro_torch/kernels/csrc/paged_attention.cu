@@ -57,8 +57,22 @@
 // decode step fills 8 of the block's 16 rows and verify at gamma = 3 two
 // row tiles.
 //
+// Sliding-window layers (`paged_window_attention_launch`): query t sees only
+// positions p - window + 1 .. p, p = lengths[b] - T + t.  The same body runs
+// under kernel names of their own (`paged_window_attention_kernel`,
+// `paged_window_combine_kernel`), so a device trace reads the windowed
+// launches apart from the full layers'.  The splits tile the span the
+// window leaves, from the row's earliest window start rounded down to a
+// tile (at most window + T - 1 positions and a tile's slack: the wrapper's
+// plan covers that, never the whole table); a block walks only from its
+// own first row's window start to its last row's position, the tiles of
+// its split in between, and masks by select inside a tile.  A windowed call needs lengths[b] >= T (every
+// row sees its own position), as every call of the paged decoder has.
+//
 // Launches on the given stream, does not synchronise and allocates nothing
 // (the wrapper allocates the split scratch); returns cudaGetLastError().
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,16 +167,16 @@ struct Layout {
                                 + sizeof(float) * kRows * kTile;
 };
 
-template <typename T, int D, int BS>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ lengths, T* __restrict__ out,
-                       float* __restrict__ part_acc,
-                       float* __restrict__ part_ml, int n_queries, int H,
-                       int KH, int maxb, int n_splits, int split_tiles,
-                       float scale) {
+// the kernels' body; kWindow: query rows see only the last `window`
+// positions up to their own
+template <typename T, int D, int BS, bool kWindow>
+__device__ __forceinline__ void attend(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int n_queries,
+    int H, int KH, int maxb, int n_splits, int split_tiles, float scale,
+    int window) {
   using L = Layout<T, D>;
   constexpr int E = D / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -180,7 +194,6 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int table_pos = maxb * BS;
-  const int p_begin = split * split_tiles * kTile;
   const int* table = tables + static_cast<size_t>(b) * maxb;
 
   // the queries of the block's rows (row -> head h * G + row % G of step
@@ -200,15 +213,36 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 
   // gathers tile `tile` of the split through the block table; positions at
-  // or past p_end are zero-filled (nothing read).  The table entries do not
-  // wait for lengths[b]: only positions past the table are skipped there.
+  // or past p_end are zero-filled (nothing read).  Without a window the
+  // table entries do not wait for lengths[b]: only positions past the table
+  // are skipped there (a windowed walk starts from lengths[b]).
   const int length = lengths[b];
   const int reach = length < n_queries ? table_pos : min(length, table_pos);
-  const int p_end = min(p_begin + split_tiles * kTile, reach);
+  // the block walks tiles [p_begin, p_stop) of its split, at most tile_cap
+  int p_begin = split * split_tiles * kTile;
+  int p_stop = p_begin + split_tiles * kTile;
+  int tile_cap = split_tiles;
+  if constexpr (kWindow) {
+    // the splits start at the row's earliest window start, tile-aligned;
+    // the block skips what lies below its first row's window start and
+    // stops after its last row's own position (a chunk's later queries
+    // are not its rows)
+    const int base =
+        max(length - n_queries - window + 1, 0) / kTile * kTile + p_begin;
+    const int first =
+        length - n_queries + (row_tile * kRows) / G - window + 1;
+    const int last = length - n_queries +
+                     (min(rows, (row_tile + 1) * kRows) - 1) / G;
+    const int skip = min(max((first - base) / kTile, 0), split_tiles);
+    p_stop = min(base + split_tiles * kTile, last + 1);
+    p_begin = base + skip * kTile;
+    tile_cap = split_tiles - skip;
+  }
+  const int p_end = min(p_stop, reach);
   const int n_tiles = p_end > p_begin ? (p_end - p_begin + kTile - 1) / kTile
                                       : 0;
   auto fetch = [&](int tile) {
-    if (tile < split_tiles) {  // not n_tiles: the lookups need no length
+    if (tile < tile_cap) {  // not n_tiles: the lookups need no length
       T* kd = ks + (tile % kStages) * L::kKV;
       T* vd = vs + (tile % kStages) * L::kKV;
 #pragma unroll
@@ -235,7 +269,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) fetch(s);  // the first with Q
 
-  int row[kRowsPerWarp], limit[kRowsPerWarp];
+  int row[kRowsPerWarp], limit[kRowsPerWarp], lo[kRowsPerWarp];
   bool live[kRowsPerWarp];
   float acc[kRowsPerWarp][E];
   float m[kRowsPerWarp], l[kRowsPerWarp];
@@ -244,6 +278,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     row[i] = row_tile * kRows + warp + kWarps * i;
     live[i] = row[i] < rows;
     limit[i] = length - n_queries + row[i] / G;
+    lo[i] = limit[i] - window + 1;
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -286,7 +321,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       for (int e = 0; e < 8; ++e) s += part[i][e];
       s *= scale;
       const bool walked = pos < p_end;
-      const float x = walked && pos <= limit[i] ? s : kNegInf;
+      bool seen = walked && pos <= limit[i];
+      if constexpr (kWindow) seen = seen && pos >= lo[i];
+      const float x = seen ? s : kNegInf;
       const float mx = fmaxf(m[i], warp_max(x));
       const float corr = expf(m[i] - mx);
       const float p = walked ? expf(x - mx) : 0.f;
@@ -345,12 +382,42 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+template <typename T, int D, int BS>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages,
+                       const int* __restrict__ tables,
+                       const int* __restrict__ lengths, T* __restrict__ out,
+                       float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int n_queries, int H,
+                       int KH, int maxb, int n_splits, int split_tiles,
+                       float scale) {
+  attend<T, D, BS, false>(q, k_pages, v_pages, tables, lengths, out, part_acc,
+                          part_ml, n_queries, H, KH, maxb, n_splits,
+                          split_tiles, scale, 0);
+}
+
+template <typename T, int D, int BS>
+__global__ void __launch_bounds__(kThreads)
+paged_window_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int n_queries,
+    int H, int KH, int maxb, int n_splits, int split_tiles, float scale,
+    int window) {
+  attend<T, D, BS, true>(q, k_pages, v_pages, tables, lengths, out, part_acc,
+                         part_ml, n_queries, H, KH, maxb, n_splits,
+                         split_tiles, scale, window);
+}
+
 // one warp per output row (b, t, head): merge the n_splits partials
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_combine_kernel(const float* __restrict__ part_acc,
-                     const float* __restrict__ part_ml, T* __restrict__ out,
-                     int n_out, int n_queries, int H, int KH, int n_splits) {
+__device__ __forceinline__ void combine(const float* __restrict__ part_acc,
+                                        const float* __restrict__ part_ml,
+                                        T* __restrict__ out, int n_out,
+                                        int n_queries, int H, int KH,
+                                        int n_splits) {
   constexpr int E = D / 32;
   const int o = blockIdx.x * kWarps + threadIdx.x / 32;
   if (o >= n_out) return;
@@ -383,43 +450,78 @@ paged_combine_kernel(const float* __restrict__ part_acc,
     store(out + static_cast<size_t>(o) * D + lane * E + e, acc[e] * inv);
 }
 
-template <typename T, int D, int BS>
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(const float* __restrict__ part_acc,
+                     const float* __restrict__ part_ml, T* __restrict__ out,
+                     int n_out, int n_queries, int H, int KH, int n_splits) {
+  combine<T, D>(part_acc, part_ml, out, n_out, n_queries, H, KH, n_splits);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_window_combine_kernel(const float* __restrict__ part_acc,
+                            const float* __restrict__ part_ml,
+                            T* __restrict__ out, int n_out, int n_queries,
+                            int H, int KH, int n_splits) {
+  combine<T, D>(part_acc, part_ml, out, n_out, n_queries, H, KH, n_splits);
+}
+
+template <typename T, int D, int BS, bool kWindow>
 int launch(const void* q, const void* k, const void* v, const void* tables,
            const void* lengths, void* out, void* part_acc, void* part_ml,
            int B, int n_queries, int H, int KH, int maxb, int n_splits,
-           int split_tiles, float scale, cudaStream_t stream) {
+           int split_tiles, float scale, int window, cudaStream_t stream) {
   constexpr int smem = Layout<T, D>::kBytes;
-  cudaError_t err = kern::allow_smem<paged_attention_kernel<T, D, BS>>(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = n_queries * (H / KH);
   const dim3 grid(((rows + kRows - 1) / kRows) * n_splits, KH, B);
-  paged_attention_kernel<T, D, BS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<T*>(out),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), n_queries,
-      H, KH, maxb, n_splits, split_tiles, scale);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const int* tp = static_cast<const int*>(tables);
+  const int* lp = static_cast<const int*>(lengths);
+  T* op = static_cast<T*>(out);
+  float* ap = static_cast<float*>(part_acc);
+  float* mp = static_cast<float*>(part_ml);
+  cudaError_t err;
+  if constexpr (kWindow) {
+    err = kern::allow_smem<paged_window_attention_kernel<T, D, BS>>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    paged_window_attention_kernel<T, D, BS><<<grid, kThreads, smem, stream>>>(
+        qp, kp, vp, tp, lp, op, ap, mp, n_queries, H, KH, maxb, n_splits,
+        split_tiles, scale, window);
+  } else {
+    err = kern::allow_smem<paged_attention_kernel<T, D, BS>>(smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    paged_attention_kernel<T, D, BS><<<grid, kThreads, smem, stream>>>(
+        qp, kp, vp, tp, lp, op, ap, mp, n_queries, H, KH, maxb, n_splits,
+        split_tiles, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
   const int n_out = B * n_queries * H;
-  paged_combine_kernel<T, D><<<(n_out + kWarps - 1) / kWarps, kThreads, 0,
-                               stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(out), n_out, n_queries, H, KH, n_splits);
+  const int blocks = (n_out + kWarps - 1) / kWarps;
+  if constexpr (kWindow)
+    paged_window_combine_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
+        ap, mp, op, n_out, n_queries, H, KH, n_splits);
+  else
+    paged_combine_kernel<T, D><<<blocks, kThreads, 0, stream>>>(
+        ap, mp, op, n_out, n_queries, H, KH, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kWindow>
 int dispatch(int D, int bs, const void* q, const void* k, const void* v,
              const void* tables, const void* lengths, void* out,
              void* part_acc, void* part_ml, int B, int n_queries, int H,
              int KH, int maxb, int n_splits, int split_tiles, float scale,
-             cudaStream_t s) {
+             int window, cudaStream_t s) {
 #define PA_CASE(DD, BB)                                                      \
   if (D == DD && bs == BB)                                                   \
-    return launch<T, DD, BB>(q, k, v, tables, lengths, out, part_acc,        \
-                             part_ml, B, n_queries, H, KH, maxb, n_splits,   \
-                             split_tiles, scale, s);
+    return launch<T, DD, BB, kWindow>(q, k, v, tables, lengths, out,         \
+                                      part_acc, part_ml, B, n_queries, H,    \
+                                      KH, maxb, n_splits, split_tiles,       \
+                                      scale, window, s);
   PA_CASE(32, 4) PA_CASE(32, 8) PA_CASE(32, 16)
   PA_CASE(64, 4) PA_CASE(64, 8) PA_CASE(64, 16)
   PA_CASE(128, 4) PA_CASE(128, 8) PA_CASE(128, 16)
@@ -434,6 +536,39 @@ int dispatch(int D, int bs, const void* q, const void* k, const void* v,
 // pages (NB+1, bs, KH, D); tables: (B, maxb) int32; lengths: (B,) int32.
 // n_splits > 1 needs fp32 scratch part_acc (B, KH, T*G, n_splits, D) and
 // part_ml (B, KH, T*G, n_splits, 2); with one split both may be null.
+// window > 0: the sliding-window launch; its splits must cover the span the
+// window leaves (at most window + T + kTile - 2 positions, or the table).
+static int run(const void* q, const void* k, const void* v,
+               const void* tables, const void* lengths, void* out,
+               void* part_acc, void* part_ml, int B, int n_queries, int H,
+               int KH, int D, int bs, int maxb, int n_splits,
+               int split_tiles, float scale, int dtype, int window,
+               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long span =
+      window > 0 ? std::min(static_cast<long long>(maxb) * bs,
+                            static_cast<long long>(window) + n_queries +
+                                kTile - 2)
+                 : static_cast<long long>(maxb) * bs;
+  if (n_splits < 1 || split_tiles < 1 || window < 0 ||
+      static_cast<long long>(n_splits) * split_tiles * kTile < span)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PA_RUN(TT, WW)                                                       \
+  return dispatch<TT, WW>(D, bs, q, k, v, tables, lengths, out, part_acc,    \
+                          part_ml, B, n_queries, H, KH, maxb, n_splits,      \
+                          split_tiles, scale, window, s);
+  if (dtype == 0) {
+    if (window > 0) PA_RUN(float, true)
+    PA_RUN(float, false)
+  }
+  if (dtype == 1) {
+    if (window > 0) PA_RUN(__nv_bfloat16, true)
+    PA_RUN(__nv_bfloat16, false)
+  }
+#undef PA_RUN
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* tables,
                                       const void* lengths, void* out,
@@ -442,18 +577,18 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
                                       int bs, int maxb, int n_splits,
                                       int split_tiles, float scale,
                                       int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_splits < 1 || split_tiles < 1 ||
-      static_cast<long long>(n_splits) * split_tiles * kTile <
-          static_cast<long long>(maxb) * bs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch<float>(D, bs, q, k, v, tables, lengths, out, part_acc,
-                           part_ml, B, n_queries, H, KH, maxb, n_splits,
-                           split_tiles, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, bs, q, k, v, tables, lengths, out,
-                                   part_acc, part_ml, B, n_queries, H, KH,
-                                   maxb, n_splits, split_tiles, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, tables, lengths, out, part_acc, part_ml, B, n_queries,
+             H, KH, D, bs, maxb, n_splits, split_tiles, scale, dtype, 0,
+             stream);
+}
+
+extern "C" int paged_window_attention_launch(
+    const void* q, const void* k, const void* v, const void* tables,
+    const void* lengths, void* out, void* part_acc, void* part_ml, int B,
+    int n_queries, int H, int KH, int D, int bs, int maxb, int n_splits,
+    int split_tiles, float scale, int dtype, int window, void* stream) {
+  if (window < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, tables, lengths, out, part_acc, part_ml, B, n_queries,
+             H, KH, D, bs, maxb, n_splits, split_tiles, scale, dtype, window,
+             stream);
 }

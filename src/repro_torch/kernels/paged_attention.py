@@ -11,6 +11,12 @@ number of splits on the host from the table width and the card's SM count,
 so the call never waits for the device.  One split (every context the serve
 runs today) is one device launch; more add a combine launch over fp32
 partials in scratch allocated here.
+
+A ``window`` > 0 (a sliding-window layer) lets query t see only positions
+p - window + 1 .. p.  It launches the kernel's windowed twin, under kernel
+names of its own (``paged_window_attention_kernel``,
+``paged_window_combine_kernel``), and the split plan covers only the span
+the window leaves (``window_span``), not the whole table.
 """
 from __future__ import annotations
 
@@ -48,26 +54,38 @@ def split_plan(B: int, KH: int, rows: int, max_positions: int,
     return -(-tiles // per), per
 
 
+def window_span(max_positions: int, T: int, window: int) -> int:
+    """Positions a windowed call's splits walk: from the earliest window
+    start of a row's T queries, rounded down to a tile, to its last
+    position — at most window + T - 1 of them and a tile's slack, and never
+    more than the table holds."""
+    return min(max_positions, window + T + TILE - 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, lengths):
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, window=0):
     """q: (B, H, D) or (B, T, H, D); k/v_pages: (num_blocks, block_size, KH,
     D); block_tables: (B, max_blocks) int32, padded with any valid id;
-    lengths: (B,) int32 -> output of q's shape and dtype.
+    lengths: (B,) int32 -> output of q's shape and dtype.  ``window`` > 0:
+    query t sees positions lengths - T + t - window + 1 onwards only.
 
     A query row that sees no position (lengths[b] < T) gets the mean of V
-    over the whole table, as the plain version and the JAX kernel give.
+    over the whole table, as the plain version and the JAX kernel give
+    (without a window: a windowed call needs lengths >= T).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (adds one to ``paged_attention.launches`` and sets
+    (adds one to ``paged_attention.launches``, and with a window to
+    ``paged_attention.window_launches`` too, and sets
     ``paged_attention.last_splits``) or raises.  The kernel has no
     backward: under autograd with an input that requires grad it raises
     rather than return a result detached from the graph."""
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                   window)
     if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
                                     or v_pages.requires_grad):
         raise RuntimeError("paged_attention: the CUDA kernel has no backward; "
@@ -78,11 +96,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     B, T, H, D = q4.shape
     _, bs, KH, Dk = k_pages.shape
     _check(q4, k_pages, v_pages, block_tables, lengths, B, H, D, bs, KH, Dk)
+    if window < 0:
+        raise ValueError(f"paged_attention: window {window} < 0")
     out = torch.empty_like(q4)
     maxb = block_tables.shape[1]
     rows = T * (H // KH)
-    n_splits, per = split_plan(B, KH, rows, maxb * bs,
-                               _sm_count(q.device.index))
+    span = window_span(maxb * bs, T, window) if window else maxb * bs
+    n_splits, per = split_plan(B, KH, rows, span, _sm_count(q.device.index))
     acc_ptr = ml_ptr = None
     if n_splits > 1:
         # fp32 partials indexed (b, kv head, row, split): accumulators and
@@ -93,18 +113,24 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
                               dtype=torch.float32, device=q.device)
         acc_ptr, ml_ptr = part_acc.data_ptr(), part_ml.data_ptr()
     lib = _build.library()
-    err = lib.paged_attention_launch(
-        q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        acc_ptr, ml_ptr, B, T, H, KH, D, bs, maxb, n_splits, per, D ** -0.5,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            acc_ptr, ml_ptr, B, T, H, KH, D, bs, maxb, n_splits, per,
+            D ** -0.5, _DTYPES[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if window:
+        err = lib.paged_window_attention_launch(*args, window, stream)
+    else:
+        err = lib.paged_attention_launch(*args, stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.window_launches += bool(window)
     paged_attention.last_splits = n_splits
     return out[:, 0] if squeeze else out
 
 
 paged_attention.launches = 0
+paged_attention.window_launches = 0   # the launches with a window
 paged_attention.last_splits = 0   # splits of the last launch
 
 

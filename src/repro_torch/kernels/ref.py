@@ -21,7 +21,8 @@ def migrate_blocks_ref(pool, src, dst):
     return pool
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                        window=0):
     """Attention of a T-token extension over paged KV.
 
     q:            (B, H, D) single-query decode, or (B, T, H, D) multi-query
@@ -29,7 +30,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     block_tables: (B, max_blocks) int32, padded with any valid id
     lengths:      (B,) valid token counts INCLUDING the T new positions
                   (whose K/V are already written into the pages); query t
-                  attends to positions <= lengths - T + t
+                  attends to positions <= p = lengths - T + t
+    window:       > 0: query t attends only to positions > p - window
     returns       same shape and dtype as q
     """
     squeeze = q.dim() == 3
@@ -48,7 +50,10 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     s = torch.einsum("btkgd,bskd->bkgts", qg, k)
     t_idx = torch.arange(T, device=q.device)
     limit = lengths.long()[:, None] - T + t_idx[None, :]          # (B, T)
-    mask = torch.arange(S, device=q.device)[None, None, :] <= limit[:, :, None]
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    mask = pos <= limit[:, :, None]
+    if window:
+        mask = mask & (pos > limit[:, :, None] - window)
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
@@ -56,22 +61,23 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return out[:, 0] if squeeze else out
 
 
-def flash_attention_ref(q, k, v, *, causal, prefix_len=0):
+def flash_attention_ref(q, k, v, *, causal, prefix_len=0, window=0):
     """Full-sequence attention, in fp32, returned in q's dtype.
 
     q: (B, Sq, H, D); k/v: (B, Sk, KH, D), query head h reading KV head
     h // (H // KH).  Causal (Sq == Sk): query i sees keys j <= i, and every
-    key j < ``prefix_len`` (a bidirectional prefix).  Non-causal: every
-    query sees every key, and ``prefix_len`` has no effect.
+    key j < ``prefix_len`` (a bidirectional prefix); with a ``window`` > 0
+    only keys j > i - window among them.  Non-causal: every query sees
+    every key, and ``prefix_len`` has no effect.
     """
     B, Sq, H, D = q.shape
-    s, _ = _flash_scores(q, k, causal, prefix_len)
+    s, _ = _flash_scores(q, k, causal, prefix_len, window)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def _flash_scores(q, k, causal, prefix_len):
+def _flash_scores(q, k, causal, prefix_len, window=0):
     """Scaled, masked fp32 scores (B, KH, G, Sq, Sk) of ``flash_attention``,
     and the mask (Sq, Sk) or None."""
     B, Sq, H, D = q.shape
@@ -83,6 +89,8 @@ def _flash_scores(q, k, causal, prefix_len):
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = (q_pos >= k_pos) | (k_pos < prefix_len)
+    if window:
+        mask = mask & (q_pos - k_pos < window)
     return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
 
 

@@ -32,6 +32,7 @@ from .serve import build_dense_engine, build_real_engine
 
 # the __global__ functions of kernels/csrc, matched by name in the trace
 OWN_KERNELS = ("paged_attention_kernel", "paged_combine_kernel",
+               "paged_window_attention_kernel", "paged_window_combine_kernel",
                "migrate_kernel", "flash_tc_kernel", "flash_simt_kernel",
                "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkdv_wgmma_kernel",

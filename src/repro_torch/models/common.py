@@ -20,7 +20,7 @@ from ..distributed.sharding import (align, attention_local_map,
                                     gather_weights, reduce_partial,
                                     replicate_dim, shard_decode_scores)
 from ..kernels.flash_attention import flash_attention
-from ..kernels.ref import NEG_INF
+from ..kernels.ref import NEG_INF, flash_attention_ref
 
 # ---------------------------------------------------------------------------
 # Initialisation (same distributions as the reference; not the same bits)
@@ -199,12 +199,45 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def rope_angles(positions, head_dim: int, theta: float):
+def yarn_frequencies(head_dim: int, theta: float, factor: float,
+                     original_max: int, beta_fast: float, beta_slow: float,
+                     device=None):
+    """Yarn's inverse frequencies (transformers' ``_compute_yarn_parameters``
+    with ``truncate``): the dims that turn more than ``beta_fast`` times
+    within ``original_max`` positions keep the plain frequency, those that
+    turn fewer than ``beta_slow`` times take it divided by ``factor``, and a
+    linear ramp over the half-dims blends the band between."""
+    def dim_at(rotations):
+        return (head_dim * math.log(original_max / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(dim_at(beta_fast)), 0)
+    high = min(math.ceil(dim_at(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    extrap = rope_frequencies(head_dim, theta, device=device)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0.0, 1.0)
+    return extrap / factor * ramp + extrap * (1.0 - ramp)
+
+
+def rope_angles(positions, head_dim: int, theta: float, yarn=None):
     """(cos, sin), each (B, S, 1, head_dim/2) fp32, for positions (B, S) —
-    computed once per step and shared by every layer's q and k."""
-    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    computed once per step and shared by every layer's q and k.  ``yarn``,
+    a config with ``yarn_factor`` > 0, takes its frequencies
+    (:func:`yarn_frequencies`) and scales cos and sin by its
+    ``yarn_attention_factor``."""
+    if yarn is None:
+        freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    else:
+        freqs = yarn_frequencies(head_dim, theta, yarn.yarn_factor,
+                                 yarn.yarn_original_max, yarn.yarn_beta_fast,
+                                 yarn.yarn_beta_slow, device=positions.device)
     angles = (positions[..., None].float() * freqs)[..., None, :]
-    return torch.cos(angles), torch.sin(angles)
+    if yarn is None:
+        return torch.cos(angles), torch.sin(angles)
+    scale = yarn.yarn_attention_factor
+    return torch.cos(angles) * scale, torch.sin(angles) * scale
 
 
 def apply_rope(x, rope):
@@ -261,7 +294,8 @@ def attn_output(p, o):
 # ---------------------------------------------------------------------------
 
 
-def blockwise_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
+def blockwise_attention(q, k, v, *, causal: bool, prefix_len: int = 0,
+                        window: int = 0):
     """Full-sequence attention: q (B, Sq, H, D), k/v (B, Sk, KH, D) ->
     (B, Sq, H, D) in q's dtype, the running softmax in fp32.
 
@@ -269,7 +303,19 @@ def blockwise_attention(q, k, v, *, causal: bool, prefix_len: int = 0):
     to every query) under ``causal``.  On the card this is the flash kernel;
     on the CPU its plain version.  DTensors go through ``local_map``: each
     rank attends over its local batch rows and heads with the whole
-    sequence (a sequence-sharded q / k / v is all-gathered first)."""
+    sequence (a sequence-sharded q / k / v is all-gathered first).
+
+    A causal ``window`` > 0 lets query i see keys i - window + 1 .. i.  Only
+    the plain version takes one: the flash kernel has no window, so on the
+    card a windowed call raises (the paged path serves windowed layers)."""
+    if window:
+        if q.device.type != "cpu" or not causal:
+            raise NotImplementedError(
+                f"blockwise_attention: a window of {window} runs only in the "
+                f"plain causal version on the CPU (no windowed flash kernel);"
+                f" serve windowed layers through the paged path")
+        return flash_attention_ref(q, k, v, causal=True,
+                                   prefix_len=prefix_len, window=window)
     return attention_local_map(_local_attention, q, k, v, causal=causal,
                                prefix_len=prefix_len)
 
@@ -279,13 +325,14 @@ def _local_attention(q, k, v, *, causal: bool, prefix_len: int):
                            causal=causal, prefix_len=prefix_len)
 
 
-def decode_attention(q, k_cache, v_cache, q_positions):
+def decode_attention(q, k_cache, v_cache, q_positions, window: int = 0):
     """Attention of T new positions against a (partially filled) cache.
 
     q: (B, T, H, D); caches (B, S, KH, D) with the new K/V already written;
     q_positions: (B, T) absolute positions.  Each query attends to every
-    cache slot at or before its own position: decode (T=1) and speculative
-    verify (T=gamma+1).  Scores in fp32; the unnormalised probabilities are
+    cache slot at or before its own position (and, with a ``window`` > 0,
+    after position - window): decode (T=1) and speculative verify
+    (T=gamma+1).  Scores in fp32; the unnormalised probabilities are
     rounded to the cache dtype before the product with V, as the reference
     does."""
     B, T, H, D = q.shape
@@ -295,8 +342,10 @@ def decode_attention(q, k_cache, v_cache, q_positions):
     qg = replicate_dim(q, 2).reshape(B, T, KH, G, D) * (D ** -0.5)
     s = torch.einsum("btkgd,bskd->bkgts", qg.float(), k_cache.float())
     s = shard_decode_scores(s)
-    mask = (torch.arange(S, device=q.device)[None, None, :]
-            <= q_positions[:, :, None])                          # (B, T, S)
+    slots = torch.arange(S, device=q.device)[None, None, :]
+    mask = slots <= q_positions[:, :, None]                      # (B, T, S)
+    if window:
+        mask = mask & (slots > q_positions[:, :, None] - window)
     s = torch.where(align(mask[:, None, None], s), s,
                     torch.full_like(s, NEG_INF))
     p = shard_decode_scores(torch.exp(s - s.amax(dim=-1, keepdim=True)))

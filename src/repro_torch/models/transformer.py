@@ -38,6 +38,7 @@ from ..distributed.sharding import (cache_write, embed_lookup,
                                     new_cache, replicate_dim,
                                     replicate_new_kv, shard_activations,
                                     shard_kv_cache, write_prefix)
+from ..configs.base import FULL
 from ..kernels.paged_attention import paged_attention
 from .common import (Spec, apply_mlp, apply_norm, attn_output,
                      blockwise_attention, decode_attention, maybe_remat,
@@ -152,10 +153,26 @@ def unembed(cfg, params, h):
 
 
 def rope_for(cfg, positions):
-    """Every layer's RoPE angles for ``positions`` (B, S), or None."""
+    """The RoPE angles for ``positions`` (B, S), once per step, or None.  A
+    config without layer types has one table for every layer; one with
+    layer types (``configs.base.WindowedConfig``) a table per kind present,
+    ``{kind: (cos, sin)}``, the full layers' yarn's where it has yarn.  A
+    layer picks its own with :func:`layer_rope`."""
     if cfg.pos_embedding != "rope":
         return None
-    return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    hd = cfg.resolved_head_dim
+    if not cfg.layer_types:
+        return rope_angles(positions, hd, cfg.rope_theta,
+                           yarn=cfg if cfg.yarn_factor else None)
+    return {kind: rope_angles(positions, hd, cfg.rope_theta,
+                              yarn=cfg if kind == FULL and cfg.yarn_factor
+                              else None)
+            for kind in set(cfg.layer_types)}
+
+
+def layer_rope(cfg, rope, i: int):
+    """Layer ``i``'s table of :func:`rope_for`'s ``rope``."""
+    return rope[cfg.layer_types[i]] if cfg.layer_types and rope else rope
 
 
 # ---------------------------------------------------------------------------
@@ -189,14 +206,17 @@ def _packed_cf(cfg) -> float:
         else None
 
 
-def apply_layer_full(cfg, layer, h, rope, *, prefix_len: int = 0):
+def apply_layer_full(cfg, layer, h, rope, *, prefix_len: int = 0,
+                     window: int = 0):
     """Full-sequence (prefill) pass through one block: h (B, S, d) ->
-    (h, k, v), with causal attention over the whole sequence and a
-    bidirectional prefix of ``prefix_len`` positions."""
+    (h, k, v), with causal attention over the whole sequence (a sliding
+    layer: over its last ``window`` positions) and a bidirectional prefix
+    of ``prefix_len`` positions."""
     h = gather_sequence(h)
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
-    o = blockwise_attention(q, k, v, causal=True, prefix_len=prefix_len)
+    o = blockwise_attention(q, k, v, causal=True, prefix_len=prefix_len,
+                            window=window)
     h = h + attn_output(layer["attn"], o)
     x = apply_norm(cfg, h, layer["ln2"])
     return h + _ffn(cfg, layer, x), k, v
@@ -221,7 +241,8 @@ def forward(cfg, params, batch):
 
     def block(hh, i):
         return shard_activations(apply_layer_full(
-            cfg, layer_params(params, i), hh, rope, prefix_len=prefix)[0])
+            cfg, layer_params(params, i), hh, layer_rope(cfg, rope, i),
+            prefix_len=prefix, window=cfg.layer_window(i))[0])
 
     block = maybe_remat(cfg, block)
     h = shard_activations(h)
@@ -255,8 +276,10 @@ def prefill(cfg, params, batch, max_len: int):
                          f"{max_len}")
     cache = new_cache(lambda dev: init_cache(cfg, B, max_len, device=dev), h)
     for i in range(cfg.num_layers):
-        h, k, v = apply_layer_full(cfg, layer_params(params, i), h, rope,
-                                   prefix_len=prefix)
+        h, k, v = apply_layer_full(cfg, layer_params(params, i), h,
+                                   layer_rope(cfg, rope, i),
+                                   prefix_len=prefix,
+                                   window=cfg.layer_window(i))
         h = shard_activations(h)
         write_prefix(cache["k"][i], k)
         write_prefix(cache["v"][i], v)
@@ -265,16 +288,18 @@ def prefill(cfg, params, batch, max_len: int):
     return unembed(cfg, params, h), cache
 
 
-def apply_layer_decode(cfg, layer, h, k_cache, v_cache, positions, rope):
+def apply_layer_decode(cfg, layer, h, k_cache, v_cache, positions, rope,
+                       window: int = 0):
     """Decode / extend: h (B, T, d); one layer's caches (B, S, KH, hd),
     written IN PLACE at ``positions`` (B, T) first; then every query attends
-    to all cache slots at or before its position."""
+    to all cache slots at or before its position (a sliding layer: the last
+    ``window`` of them)."""
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
     start = positions[:, 0]
     k_cache = shard_kv_cache(cache_write(k_cache, replicate_new_kv(k), start))
     v_cache = shard_kv_cache(cache_write(v_cache, replicate_new_kv(v), start))
-    o = decode_attention(q, k_cache, v_cache, positions)
+    o = decode_attention(q, k_cache, v_cache, positions, window)
     h = h + attn_output(layer["attn"], o)
     x = apply_norm(cfg, h, layer["ln2"])
     return h + _ffn(cfg, layer, x, _decode_cf(cfg))
@@ -292,7 +317,8 @@ def decode_step(cfg, params, cache, tokens):
     h = embed_tokens(cfg, params, tokens.long())
     for i in range(cfg.num_layers):
         h = apply_layer_decode(cfg, layer_params(params, i), h,
-                               cache["k"][i], cache["v"][i], positions, rope)
+                               cache["k"][i], cache["v"][i], positions,
+                               layer_rope(cfg, rope, i), cfg.layer_window(i))
     h = apply_norm(cfg, h, params["final_norm"])
     return unembed(cfg, params, h), {"k": cache["k"], "v": cache["v"],
                                      "length": cache["length"] + T}
@@ -329,32 +355,36 @@ def _write_slots(tables, positions, valid, trash: int, block_size: int):
     return blk, positions % block_size
 
 
-def _attend(q, k_pages, v_pages, tables, lengths, runs):
-    """Paged attention of one layer.  Without ``runs`` (a padded call) one
-    launch over the (B, T) queries.  A packed call's q is (N, 1, H, D), its
-    rows' positions one after another; each run ``(r0, r1, n, off)`` of
+def _attend(q, k_pages, v_pages, tables, lengths, runs, window=0):
+    """Paged attention of one layer (a sliding layer: over the last
+    ``window`` positions of each query).  Without ``runs`` (a padded call)
+    one launch over the (B, T) queries.  A packed call's q is (N, 1, H, D),
+    its rows' positions one after another; each run ``(r0, r1, n, off)`` of
     rows r0..r1-1 holding n queries each, from position ``off`` of the
     stream on, attends in one launch of (r1 - r0, n) queries."""
     if runs is None:
-        return paged_attention(q, k_pages, v_pages, tables, lengths)
+        return paged_attention(q, k_pages, v_pages, tables, lengths, window)
     H, D = q.shape[2:]
     outs = [paged_attention(q[off:off + (r1 - r0) * n].view(r1 - r0, n, H, D),
-                            k_pages, v_pages, tables[r0:r1], lengths[r0:r1])
+                            k_pages, v_pages, tables[r0:r1], lengths[r0:r1],
+                            window)
             .reshape(-1, 1, H, D) for r0, r1, n, off in runs]
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def apply_layer_decode_paged(cfg, layer, h, k_pages, v_pages, tables,
-                             slots, rope, lengths, runs=None):
+                             slots, rope, lengths, runs=None, window=0):
     """h (B, T, d); one layer's pages (NB+1, bs, KH, hd).  The new K/V are
     written IN PLACE at ``slots`` first, then every query attends to all
-    paged slots at or before its position (``runs``: a packed call's rows,
-    see :func:`_attend`)."""
+    paged slots at or before its position (a sliding layer: the last
+    ``window`` of them; ``runs``: a packed call's rows, see
+    :func:`_attend`)."""
     x = apply_norm(cfg, h, layer["ln1"])
     q, k, v = qkv_project(cfg, layer["attn"], x, rope)
     k_pages.index_put_(slots, k.to(k_pages.dtype))
     v_pages.index_put_(slots, v.to(v_pages.dtype))
-    o = _attend(q.contiguous(), k_pages, v_pages, tables, lengths, runs)
+    o = _attend(q.contiguous(), k_pages, v_pages, tables, lengths, runs,
+                window)
     h = h + attn_output(layer["attn"], o.to(h.dtype))
     x = apply_norm(cfg, h, layer["ln2"])
     cf = _decode_cf(cfg) if runs is None else _packed_cf(cfg)
@@ -401,7 +431,8 @@ def decode_step_paged(cfg, params, pages, tokens, tables, start, valid=None):
     for i in range(cfg.num_layers):
         h = apply_layer_decode_paged(
             cfg, layer_params(params, i), h, pages["k_pages"][i],
-            pages["v_pages"][i], tables, slots, rope, lengths)
+            pages["v_pages"][i], tables, slots, layer_rope(cfg, rope, i),
+            lengths, window=cfg.layer_window(i))
     h = apply_norm(cfg, h, params["final_norm"])
     return unembed(cfg, params, h), pages
 
@@ -439,6 +470,7 @@ def _decode_step_packed(cfg, params, pages, tokens, tables, start, valid):
     for i in range(cfg.num_layers):
         h = apply_layer_decode_paged(
             cfg, layer_params(params, i), h, pages["k_pages"][i],
-            pages["v_pages"][i], tables, slots, rope, lengths, runs)
+            pages["v_pages"][i], tables, slots, layer_rope(cfg, rope, i),
+            lengths, runs, cfg.layer_window(i))
     h = apply_norm(cfg, h[last], params["final_norm"])             # (R, 1, d)
     return unembed(cfg, params, h), pages

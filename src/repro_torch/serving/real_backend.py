@@ -34,7 +34,9 @@ inside the engine's ``engine.execute`` span: ``backend.copies`` (host-tier
 transfers and CoW forks), ``backend.pack`` (step operands, block tables,
 host-to-device uploads; its args count the positions a model call runs,
 ``positions_run``, against the real ones, ``positions_valid``: equal in a
-packed call),
+packed call; for a target with sliding-window layers, also the K/V
+positions one full layer and one sliding layer read over the call's real
+rows, ``kv_read_full`` and ``kv_read_window``),
 ``backend.dispatch`` (enqueueing the model call), ``backend.sync`` (the
 wait in the device synchronise) and ``backend.unpack`` (device-to-host
 copies, per-sequence bookkeeping).
@@ -138,12 +140,33 @@ class RealBackend:
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
-    def _packed(self, model: str, run: int, valid: int) -> None:
+    def _packed(self, model: str, run: int, valid: int,
+                rows: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                ) -> None:
         """End the caller's ``backend.pack`` span with the positions the
         model call runs and the real ones among them, and open the call's
-        ``backend.dispatch``."""
+        ``backend.dispatch``.  A target call passes its ``rows``, (start,
+        count) host arrays, whose K/V reads a target with sliding-window
+        layers counts (:meth:`_kv_reads`)."""
         self.spans.switch("backend.dispatch", model=model,
-                          positions_run=run, positions_valid=valid)
+                          positions_run=run, positions_valid=valid,
+                          **self._kv_reads(rows))
+
+    def _kv_reads(self, rows) -> dict:
+        """The K/V positions that one full layer (``kv_read_full``) and one
+        sliding layer (``kv_read_window``) of the target read over a call's
+        real rows: a row of n queries after ``start`` positions reads
+        start + n of them in a full layer, and from its first query's
+        window start on, min(start + n, n + W - 1), in a sliding one of
+        window W.  Empty for a target without a window."""
+        W = self.target.cfg.sliding_window
+        if not W or rows is None:
+            return {}
+        start, n = (np.asarray(a, np.int64) for a in rows)
+        start, n = start[n > 0], n[n > 0]
+        return {"kv_read_full": int((start + n).sum()),
+                "kv_read_window": int(np.minimum(start + n, n + W - 1)
+                                      .sum())}
 
     def _synced(self) -> None:
         """The device synchronise that ends a dispatch, as its own
@@ -175,7 +198,8 @@ class RealBackend:
         last = (self._dev(np.maximum(valid.astype(np.int64) - 1, 0))
                 if tokens.shape[1] > 1 else None)
         if sp is not None:
-            self._packed("target", tokens.size, int(valid.sum()))
+            self._packed("target", tokens.size, int(valid.sum()),
+                         (start, valid))
         logits, self.tkv.pages = self.target.decode_step_paged(
             self.tparams, self.tkv.pages, *ops)
         if last is None:
@@ -540,7 +564,9 @@ class RealBackend:
             # a gamma > 0 step runs the draft chain and the target's verify
             # each over Bb x (gamma + 1) positions
             self._packed("target" if gamma == 0 else "spec",
-                         Bb * (gamma + 1), len(seqs) * (gamma + 1))
+                         Bb * (gamma + 1), len(seqs) * (gamma + 1),
+                         ([self.tkv.ctx[s.req_id] for s in seqs],
+                          [gamma + 1] * len(seqs)))
         if gamma == 0:
             nxt, self.tkv.pages = self._ar(self.gen, self.tparams,
                                            self.tkv.pages, tables_d,
