@@ -22,8 +22,10 @@ Phases (any failed check raises, and the script exits non-zero):
   5. lossless — fp32 (TF32 off) at full width and cut depth: the greedy
                stream under Nightjar equals the AR stream, with the paper's
                draft and with the target as its own draft (which accepts);
-  6. elastic — the elastic memory manager offloads the draft on a 24-block
-               pool and the streams equal an unmanaged run;
+  6. elastic — the elastic memory manager's whole cycle on a 24-block
+               pool (offload, grow, contract, shrink, reload; a scripted
+               planner), the streams equal an unmanaged run's, and spec
+               steps after the reload replay their recaptured graphs;
   7. dense_serve — the dense-cache path: the same pair and requests as
                phase 3 through ``DenseSlotBackend`` (monolithic prefill one
                prompt at a time through the flash-attention kernel, dense
@@ -44,8 +46,9 @@ Phases (any failed check raises, and the script exits non-zero):
                ``prefix_len`` 256), 8 ``decode_step``s, held against
                ``forward`` at full width in bf16 and at 4 layers in fp32;
  13. moe_lossless — granite at full width and 4 layers, fp32, capacity
-               factor 8.0 (no drops): AR, fixed-2, Nightjar and
-               target-as-draft greedy streams are equal;
+               factor 8.0: AR, fixed-2, Nightjar and target-as-draft
+               greedy streams are equal with step graphs on, and the same
+               runs on the eager path drop no slot (counted);
  14. ssm_serve — the O(1)-state main path: the full-width, full-depth bf16
                mamba2-780m pair (48 + 6 layers) served through
                ``build_real_engine`` → ``DenseSlotBackend`` (no attention:
@@ -65,6 +68,17 @@ Phases (any failed check raises, and the script exits non-zero):
                of 1,100-1,800 tokens, past the 1,024-position window; the
                21 sliding layers' windowed launches counted apart
                (``paged_window_attention`` in the kernels line);
+ 16c. decode_graphs — the pure-decode and spec steps' captured graphs
+               (``serving/step_graphs.py``) against the eager model call,
+               full-width bf16 paper-7b, granite and Mellum2 on their
+               cells' pools (graphs 512 / 512 / 2,048 blocks wide): the
+               up-front capture of every bucket and gamma, timed; then
+               batch buckets 1 / 4 / 16 / 64, contexts in two table widths
+               padded into the served width and gamma 0-3: the same
+               tokens, the same launch counts, and each key's eager and
+               replayed step times (CUDA events, in turns); what padding
+               the tables to the served width and the batch to the next
+               captured bucket costs a replay;
  17. ssm_lossless — fp32 cut depth: mamba2 AR == fixed-2 == Nightjar ==
                target-as-draft, zamba2 AR == fixed-2 == Nightjar, through
                the engine (SSM checkpoint rollback);
@@ -928,7 +942,7 @@ def phase_serve(torch):
          prefix_forks=m.prefix.get("forks", 0), launches=counts,
          step_ms={g: 1e3 * v["latency_s"] / v["steps"]
                   for g, v in m.spec["per_gamma"].items()},
-         summary=m.summary())
+         graphs=graph_counts(engine.backend), summary=m.summary())
     del engine
     torch.cuda.empty_cache()
     return counts, params, outs
@@ -1088,8 +1102,10 @@ def phase_lossless(torch, params):
                              m.spec.get("per_gamma", {}).items() if gam > 0)
         if policy == "nightjar":
             assert m.spec.get("spec_steps", 0) >= 1, m.spec
+        graphs = graph_counts(engine.backend)
+        assert graphs["replays"] > 0, graphs
         emit("lossless_run", run=name, spec=m.spec_summary(),
-             accepted_tokens=accepted[name], launches=counts)
+             accepted_tokens=accepted[name], launches=counts, graphs=graphs)
         del engine
     assert accepted["nightjar, draft = target"] > 0, accepted
     for name in ("nightjar", "nightjar, draft = target"):
@@ -1101,13 +1117,13 @@ def phase_lossless(torch, params):
 
 def recipe(params, *, memmgr, blocks=24, block_size=4, chunk=None,
            prefix_caching=False, host_blocks=None, prompt=10, out=12,
-           wave2=0, setup=None):
+           wave2=0, setup=None, policy=None):
     """tests/test_paged_backend.py's engine recipe on the card, at the fp32
     cut: by default the elastic pool's (24 blocks of 4 tokens, four
     requests).  ``chunk`` is the chunk budget, ``host_blocks`` the capacity
     of a host KV tier; ``wave2`` more requests repeat the first four's
     prompts once those have drained; ``setup(engine)`` runs before the
-    engine does."""
+    engine does; ``policy``, the planner, Nightjar's by default."""
     from repro_torch.core.bandits import make_policy
     from repro_torch.models import registry
     from repro_torch.serving.engine import ServingEngine
@@ -1132,7 +1148,8 @@ def recipe(params, *, memmgr, blocks=24, block_size=4, chunk=None,
             offload_fn=be.offload_draft, reload_fn=be.reload_draft,
             migrate_fn=be.migrate_pools, grow_fn=be.grow_pools,
             shrink_fn=be.shrink_pools)
-    eng = ServingEngine(be, sched, make_policy("nightjar", 3, seed=0), mm,
+    eng = ServingEngine(be, sched, policy or make_policy("nightjar", 3,
+                                                          seed=0), mm,
                         gamma_max=3)
     reqs = tiny_requests(4, rate_qps=1e6, prompt_len=prompt, output_len=out,
                          vocab=cfg.vocab_size, seed=5)
@@ -1155,15 +1172,65 @@ def repeat_wave(reqs, n):
         for i, r in ((i, reqs[i % len(reqs)]) for i in range(n))]
 
 
+class Scripted:
+    """gamma 0 while three or more sequences run (speculation off, so the
+    memory manager may offload the draft), 2 below (tests/
+    test_torch_engine.py's planner of the elastic cycle)."""
+    name = "scripted"
+
+    def select(self, batch, *, delta_max=0):
+        return 0 if batch >= 3 else 2
+
+    def observe(self, *args, **kw):
+        pass
+
+
 def phase_elastic(params):
+    """The elastic memory manager's whole cycle on a 24-block pool with a
+    scripted planner and a second wave (tests/test_torch_engine.py's
+    ``CYCLE``): the draft is offloaded and the pool grows, then the pool
+    is contracted and trimmed and the draft reloaded; the streams equal
+    an unmanaged run's.  With step graphs on, each move drops graphs;
+    every spec step after the reload runs a graph captured over the
+    reloaded draft, and all but the first of a key replay it."""
+    after = []
+
+    def watch(eng):
+        be, mm = eng.backend, eng.memmgr
+        reload, step = mm.reload_fn, be.step
+
+        def reload_draft():
+            reload()
+            after.append("reload")
+
+        def counted_step(seqs, gamma):
+            g = be._graphs
+            before = (g.captures, g.replays)
+            out = step(seqs, gamma)
+            if after and gamma > 0:
+                after.append("capture" if g.captures > before[0] else
+                             "replay" if g.replays > before[1] else "eager")
+            return out
+        mm.reload_fn, be.step = reload_draft, counted_step
+        watch.backend = be
+
     reset_counts()
-    managed, m = recipe(params, memmgr=True)
+    managed, m = recipe(params, memmgr=True, wave2=2, setup=watch,
+                        policy=Scripted())
     counts = read_counts()
-    plain, _ = recipe(params, memmgr=False)
-    assert m.offload_events >= 1, m.summary()
+    be = watch.backend
+    graphs = graph_counts(be)
+    del be.step, watch.backend, be
+    plain, _ = recipe(params, memmgr=False, wave2=2, policy=Scripted())
+    assert m.offload_events >= 1 and m.reload_events >= 1, m.summary()
     assert managed == plain, "elastic-pool streams differ from unmanaged"
+    spec_after = after[after.index("reload") + 1:]
+    assert "replay" in spec_after and "eager" not in spec_after, after
+    assert graphs["replays"] > 0 and graphs["captures"] > graphs["keys"], \
+        graphs
     emit("elastic", offload_events=m.offload_events,
-         reload_events=m.reload_events, equal=True, launches=counts)
+         reload_events=m.reload_events, equal=True, launches=counts,
+         graphs=graphs, spec_steps_after_reload=spec_after)
 
 
 # ---------------------------------------------------------------------------
@@ -1386,6 +1453,7 @@ def phase_pressure_serve(torch, params, serve_outs):
          spec=m.spec_summary(), launches=counts,
          first_wave_tokens_equal_to_serve=equal,
          tokens_compared=sum(len(outs[r.req_id]) for r in first),
+         graphs=graph_counts(be),
          seconds=time.perf_counter() - t_phase)
     del eng, be
     torch.cuda.empty_cache()
@@ -1565,6 +1633,8 @@ class DropCounter:
     def __enter__(self):
         self.moe.apply_moe = self.counted
         be = self.backend
+        # the counting runs in Python: a replayed step graph would skip it
+        self.graphs, be._graphs = be._graphs, None
         self.saved = {name: be.__dict__.get(name) for name in self.TAGS}
         for name, kind in self.TAGS.items():
             setattr(be, name, self._tagged(kind, getattr(be, name)))
@@ -1577,7 +1647,8 @@ class DropCounter:
                 delattr(self.backend, name)
             else:
                 setattr(self.backend, name, fn)
-        self.backend = self.saved = None
+        self.backend._graphs = self.graphs
+        self.backend = self.saved = self.graphs = None
 
     def summary(self):
         return {k: {"calls": v["calls"], "slots": v["slots"],
@@ -1728,10 +1799,219 @@ def phase_window_serve(torch):
          allocated_before_phase_bytes=left_over,
          requests_finished=len(m.requests),
          spec_steps=m.spec.get("spec_steps", 0), launches=counts,
-         pool_blocks=engine.backend.bm.total_blocks)
+         pool_blocks=engine.backend.bm.total_blocks,
+         graphs=graph_counts(engine.backend))
     del engine, params
     torch.cuda.empty_cache()
     return counts
+
+
+GRAPH_BUCKETS = (1, 4, 16, 64)
+# context table widths in blocks of 8: a short table and one that splits
+# (paper-7b, granite: 512 positions); Mellum2 inside and past its 1,024
+# window
+GRAPH_WIDTHS = {"paper-7b": (4, 64), GRANITE: (4, 64), "mellum2": (16, 256)}
+# the cells' pools (``bench_port/configs``): 64 rows' share of them makes
+# graphs 512, 512 and 2,048 blocks wide, as served
+GRAPH_POOLS = {"paper-7b": 24576, GRANITE: 24576, "mellum2": 71680}
+# batches a step pads up to the next captured bucket (4, 16, 64), against
+# a graph of their own power-of-two bucket (2, 8, 32)
+PAD_BATCHES = (2, 5, 17)
+
+
+def graph_backend(torch, arch):
+    """A full-width bf16 ``RealBackend`` of ``arch`` (seeded weights) on
+    its cell's pool (``GRAPH_POOLS``) of blocks of 8, 64 rows, its pages
+    filled with seeded noise."""
+    from repro_torch import configs
+    from repro_torch.configs import mellum2_12b
+    from repro_torch.models import registry
+    from repro_torch.serving.real_backend import RealBackend
+    if arch == "mellum2":
+        cfg, dcfg = mellum2_12b.CONFIG, mellum2_12b.DRAFT
+    else:
+        cfg, dcfg = configs.get_config(arch), configs.get_draft_config(arch)
+    cfg, dcfg = cfg.replace(dtype="bfloat16"), dcfg.replace(dtype="bfloat16")
+    be = RealBackend(registry.get_model(cfg), registry.get_model(dcfg),
+                     device="cuda", max_batch=64, block_size=8,
+                     num_blocks=GRAPH_POOLS[arch], seed=0)
+    gen = torch.Generator(device=be.device).manual_seed(7)
+    for kv in (be.tkv, be.dkv):
+        for t in kv.pages.values():
+            t.normal_(generator=gen)
+    return be, cfg
+
+
+def phase_decode_graphs(torch):
+    """Each arch's backend captures its steps up front
+    (``capture_steps``: batch buckets 1 / 4 / 16 / 64, gamma 0-3, at the
+    backend's width, as served: 512 blocks for paper-7b and granite, 2,048
+    for Mellum2), timed.  Then each bucket, context width and gamma
+    against the eager model call on the same operands (rows of distinct
+    blocks, contexts in the last block of ``width`` with gamma + 1
+    positions left, tables padded with the write-off block to the graph's
+    width, seeded last tokens): the step writes the same positions with
+    the same values, so the two calls see one state.  Asserts equal
+    tokens (and acceptance counts) from two replays and equal
+    ``paged_attention`` launch counts; times each key's eager call and
+    replay with CUDA events in turns (eager, graph, graph, eager: the
+    host's enqueueing is in the eager time), after an untimed first
+    replay, which instantiates the graph.  What padding costs a replay,
+    against graphs of a runner of its own: the same step in a graph of
+    its tables' own width, and, at the long context, ``PAD_BATCHES`` rows
+    in the graph of the bucket a step pads them to against one of their
+    power-of-two bucket."""
+    import statistics
+
+    import numpy as np
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving.paged_runtime import bucket_size
+    from repro_torch.serving.step_graphs import CudaGraph, StepGraphs
+    rows, pads = [], []
+    t_phase = time.perf_counter()
+    for arch, widths in GRAPH_WIDTHS.items():
+        torch.cuda.empty_cache()
+        be, cfg = graph_backend(torch, arch)
+        g = be._graphs
+        assert g is not None, "no step graphs on the card"
+        W = g.width
+        assert W == bucket_size(-(-GRAPH_POOLS[arch] // 64)), W
+        assert g.buckets == GRAPH_BUCKETS, g.buckets
+        n0 = paged_attention.launches
+        t0 = time.perf_counter()
+        be.capture_steps(3)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        assert paged_attention.launches == n0
+        assert g.captures == len(g.entries) == 4 * 4, g.captures
+        rng = np.random.default_rng(11)
+
+        def timed(fn):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn()
+            e.record()
+            torch.cuda.synchronize()
+            return out, s.elapsed_time(e)
+
+        def step_fn(gamma):
+            return lambda *x: be._padded_call(gamma, *x)
+
+        def replay(runner, key, host):
+            entry = runner.load(key, host)
+            return runner.run(entry, be._graph_ptrs(key[2]),
+                              step_fn(key[2]))
+
+        def replay_ms(runner, key, host):
+            """Two timed replays of ``key``'s graph in ``runner``, after
+            its capture and an untimed first replay."""
+            runner.capture(key, host, be._graph_ptrs(key[2]),
+                           step_fn(key[2]))
+            replay(runner, key, host)
+            return [timed(lambda: replay(runner, key, host))[1]
+                    for _ in range(2)]
+
+        def inputs(n, Bb, width, table_w, gamma):
+            """``n`` real rows of a ``Bb``-row step, contexts in the last
+            block of ``width``, tables ``table_w`` wide."""
+            tables = np.full((Bb, table_w), be.tkv.trash, np.int32)
+            tables[:n, :width] = np.arange(n * width).reshape(n, width)
+            lengths = np.zeros((Bb,), np.int32)
+            lengths[:n] = rng.integers((width - 1) * 8, width * 8 - gamma,
+                                       n, dtype=np.int32)
+            last = np.zeros((Bb,), np.int64)
+            last[:n] = rng.integers(0, cfg.vocab_size, n, dtype=np.int64)
+            return tables, lengths, last
+
+        for Bb in GRAPH_BUCKETS:
+            for width in widths:
+                for gamma in range(4):
+                    tables, lengths, last = inputs(Bb, Bb, width, W, gamma)
+                    ops = tuple(torch.from_numpy(a).to(be.device)
+                                for a in (tables, lengths, last))
+                    host = be._graph_inputs(tables, lengths, last, gamma)
+                    key = (Bb, W, gamma)
+
+                    def eager():
+                        return be._padded_call(gamma, *ops)
+
+                    n0 = paged_attention.launches
+                    want, e1 = timed(eager)
+                    want = [t.cpu() for t in want]
+                    n1 = paged_attention.launches
+                    # the first replay instantiates the graph: untimed
+                    got = [t.cpu() for t in replay(g, key, host)]
+                    n2 = paged_attention.launches
+                    again, r1 = timed(lambda: replay(g, key, host))
+                    again = [t.cpu() for t in again]
+                    n3 = paged_attention.launches
+                    _, r2 = timed(lambda: replay(g, key, host))
+                    _, e2 = timed(eager)
+                    tag = (arch, Bb, width, gamma)
+                    for a, b, c in zip(want, got, again):
+                        assert torch.equal(a, b) and torch.equal(a, c), tag
+                    assert n1 - n0 == n2 - n1 == n3 - n2 > 0, \
+                        (tag, n0, n1, n2, n3)
+                    # the same step in a graph of its tables' own width
+                    exact = StepGraphs(CudaGraph, be.device, max_batch=64,
+                                       width=width)
+                    x = replay_ms(exact, (Bb, width, gamma),
+                                  (np.ascontiguousarray(tables[:, :width]),)
+                                  + host[1:])
+                    del exact
+                    rows.append(dict(arch=arch, Bb=Bb, width=width,
+                                     gamma=gamma, launches=n1 - n0,
+                                     splits=paged_attention.last_splits,
+                                     eager_ms=[e1, e2], replay_ms=[r1, r2],
+                                     exact_width_replay_ms=x))
+        for n in PAD_BATCHES:
+            for gamma in range(4):
+                Bb, own = g.bucket(n), bucket_size(n)
+                assert Bb > own, (n, Bb, own)
+                tables, lengths, last = inputs(n, Bb, widths[-1], W, gamma)
+                host = be._graph_inputs(tables, lengths, last, gamma)
+                padded = replay_ms(g, (Bb, W, gamma), host)
+                exact = StepGraphs(CudaGraph, be.device, max_batch=64,
+                                   width=W)
+                x = replay_ms(exact, (own, W, gamma), be._graph_inputs(
+                    tables[:own], lengths[:own], last[:own], gamma))
+                del exact
+                pads.append(dict(arch=arch, rows=n, bucket=Bb, own=own,
+                                 gamma=gamma, replay_ms=padded,
+                                 own_bucket_replay_ms=x))
+        emit("decode_graphs_arch", arch=arch, width=W,
+             capture_steps_s=capture_s, keys=4 * 4, replays=g.replays,
+             rows=[r for r in rows if r["arch"] == arch],
+             batch_padding=[r for r in pads if r["arch"] == arch])
+        del be, g
+    emit("decode_graphs", keys=len(rows), tokens_equal=True,
+         launches_equal=True,
+         # medians over each arch's keys: eager ms / replayed ms; the
+         # served width's replay / one at the tables' own width, by
+         # context width; a batch's replay in the bucket it pads to / in
+         # its own power-of-two bucket, by rows
+         eager_over_replay={a: statistics.median(
+             sum(r["eager_ms"]) / sum(r["replay_ms"])
+             for r in rows if r["arch"] == a) for a in GRAPH_WIDTHS},
+         padded_over_exact={a: {w: statistics.median(
+             sum(r["replay_ms"]) / sum(r["exact_width_replay_ms"])
+             for r in rows if r["arch"] == a and r["width"] == w)
+             for w in ws} for a, ws in GRAPH_WIDTHS.items()},
+         bucket_over_own={a: {n: statistics.median(
+             sum(r["replay_ms"]) / sum(r["own_bucket_replay_ms"])
+             for r in pads if r["arch"] == a and r["rows"] == n)
+             for n in PAD_BATCHES} for a in GRAPH_WIDTHS},
+         seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def graph_counts(backend):
+    """A backend's step graphs: captures, replays and keys held."""
+    g = backend._graphs
+    return None if g is None else {"captures": g.captures,
+                                   "replays": g.replays,
+                                   "keys": len(g.entries)}
 
 
 def phase_moe_serve(torch):
@@ -1750,9 +2030,12 @@ def phase_vlm_serve(torch):
 def phase_moe_lossless(torch):
     """tests/test_spec_engine.py's losslessness on the card: granite at
     full width and 4 layers, fp32 with TF32 off, capacity factor 8.0 as the
-    reference's reduced() sets it, so no call drops a slot (counted).  The
-    greedy streams under AR, fixed-2, Nightjar and Nightjar with the target
-    as its own draft (which accepts) are equal token for token."""
+    reference's reduced() sets it.  The greedy streams under AR, fixed-2,
+    Nightjar and Nightjar with the target as its own draft (which accepts)
+    are equal token for token, served with step graphs on (the pure-decode
+    and spec steps replay); each run is served once more on the eager
+    path under a :class:`DropCounter` (which counts in Python, so it turns
+    the graphs off), to the same streams, with no slot dropped."""
     from repro_torch import configs
     from repro_torch.launch.serve import build_real_engine
     from repro_torch.models import registry
@@ -1769,26 +2052,34 @@ def phase_moe_lossless(torch):
              (params[0], params[0])))
     out, accepted, drops = {}, {}, {}
     for name, policy, draft_cfg, pair in runs:
-        engine = build_real_engine(cfg, draft_cfg, device="cuda",
-                                   policy=policy, prefix_caching=True,
-                                   chunk_tokens=16, seed=0, params=pair)
-        reqs = requests(cfg.vocab_size)
+        def engine():
+            return build_real_engine(cfg, draft_cfg, device="cuda",
+                                     policy=policy, prefix_caching=True,
+                                     chunk_tokens=16, seed=0, params=pair)
+        eng, reqs = engine(), requests(cfg.vocab_size)
         reset_counts()
-        with DropCounter(torch, engine.backend) as dc:
-            m = engine.run(reqs, max_steps=5000, record_timeline=True)
+        m = eng.run(reqs, max_steps=5000, record_timeline=True)
         counts = read_counts()
-        out[name] = streams(engine, reqs)
+        out[name] = streams(eng, reqs)
         check_run(m, reqs, out[name], cfg.vocab_size)
+        graphs = graph_counts(eng.backend)
+        assert graphs["replays"] > 0, graphs
         accepted[name] = sum(g["accepted"] for gam, g in
                              m.spec.get("per_gamma", {}).items() if gam > 0)
-        drops[name] = dc.summary()
-        assert all(v["dropped"] == 0 for v in drops[name].values()), drops
         if policy != "ar":
             assert m.spec.get("spec_steps", 0) >= 1, m.spec
+        del eng
+        eng, reqs = engine(), requests(cfg.vocab_size)
+        with DropCounter(torch, eng.backend) as dc:
+            eng.run(reqs, max_steps=5000)
+        eager = streams(eng, reqs)
+        drops[name] = dc.summary()
+        assert all(v["dropped"] == 0 for v in drops[name].values()), drops
+        assert eager == out[name], f"{name}: eager stream != replayed"
         emit("moe_lossless_run", run=name, spec=m.spec_summary(),
-             accepted_tokens=accepted[name], launches=counts,
+             accepted_tokens=accepted[name], launches=counts, graphs=graphs,
              dropped_slots=drops[name])
-        del engine
+        del eng
     assert accepted["nightjar, draft = target"] > 0, accepted
     for name in out:
         assert out[name] == out["ar"], f"fp32 {name} stream != AR stream"
@@ -3373,6 +3664,7 @@ def main() -> int:
     by_path["encdec_prefix"] = {"flash_attention":
                                 phase_encdec_prefix(torch)}
     by_path["window_serve"] = phase_window_serve(torch)
+    phase_decode_graphs(torch)
 
     from repro_torch.models import registry
     cfg, dcfg = fp32_cut()

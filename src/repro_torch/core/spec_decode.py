@@ -41,12 +41,16 @@ def _sample(gen, logits):
 def make_paged_spec_step(target: ModelAPI, draft: ModelAPI, *,
                          sampling: str = "greedy", temperature: float = 1.0):
     """Build ``spec_step(gen, tparams, dparams, tpages, dpages, tables,
-    lengths, last_tokens, gamma) -> SpecResult``.
+    lengths, last_tokens, gamma, positions=None) -> SpecResult``.
 
     ``lengths`` is the per-sequence materialised token count N.  Both models
     write the (gamma+1)-token chunk at positions N..N+gamma through the SAME
     block tables, which the caller has grown to cover N + gamma + 1
-    positions.  sampling: "greedy" (accept on argmax match) or "rejection"
+    positions.  ``positions`` (gamma+1, B), row i = N + i, may carry the
+    draft chain's starts as inputs (a captured step passes them, so that
+    every operand of its model calls is one of the step's inputs, which
+    outlive the graph's replays); without it the chain counts them on the
+    device.  sampling: "greedy" (accept on argmax match) or "rejection"
     (lossless stochastic verification)."""
     if not (target.supports_paged and draft.supports_paged):
         raise NotImplementedError(
@@ -54,11 +58,13 @@ def make_paged_spec_step(target: ModelAPI, draft: ModelAPI, *,
             "draft models")
 
     def spec_step(gen, tparams, dparams, tpages, dpages, tables, lengths,
-                  last_tokens, gamma: int):
+                  last_tokens, gamma: int, positions=None):
         # the draft chain: gamma+1 single-token paged steps
         tok, pos = last_tokens, lengths
         toks, probs = [], []
-        for _ in range(gamma + 1):
+        for i in range(gamma + 1):
+            if positions is not None:
+                pos = positions[i]
             logits, dpages = draft.decode_step_paged(dparams, dpages,
                                                      tok[:, None], tables, pos)
             lg = logits[:, 0] / temperature

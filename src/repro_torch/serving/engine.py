@@ -129,6 +129,12 @@ class ServingEngine:
         self.spec_forced_off = False       # stage >= spec_off: gamma -> 0
         self.best_effort_cap: Optional[int] = None  # stage >= output_cap:
                                            # max_new_tokens for best_effort
+        # a backend that replays captured step graphs makes them now, for
+        # every batch and gamma this engine may ask for: a capture while
+        # serving would stall every running stream
+        capture_steps = getattr(backend, "capture_steps", None)
+        if capture_steps is not None:
+            capture_steps(gamma_max)
 
     # ------------------------------------------------------------------
     # observability seam

@@ -36,10 +36,19 @@ host-to-device uploads; its args count the positions a model call runs,
 ``positions_run``, against the real ones, ``positions_valid``: equal in a
 packed call; for a target with sliding-window layers, also the K/V
 positions one full layer and one sliding layer read over the call's real
-rows, ``kv_read_full`` and ``kv_read_window``),
-``backend.dispatch`` (enqueueing the model call), ``backend.sync`` (the
-wait in the device synchronise) and ``backend.unpack`` (device-to-host
-copies, per-sequence bookkeeping).
+rows, ``kv_read_full`` and ``kv_read_window``; a pure-decode or spec
+step's also lists each real row's context, ``starts``),
+``backend.dispatch`` (enqueueing the model call; its ``graph`` arg says
+how: ``eager``, or ``capture`` / ``replay`` of a step graph),
+``backend.sync`` (the wait in the device synchronise) and
+``backend.unpack`` (device-to-host copies, per-sequence bookkeeping).
+
+On the card, with greedy sampling, :meth:`RealBackend.step` replays a
+captured graph of its padded-layout model call, one per (batch bucket of
+1, 4, 16, ..., table width, gamma), made before serving
+(:meth:`RealBackend.capture_steps`, which the engine calls when it is
+built; ``serving/step_graphs.py``); every other call, and every call on
+the CPU, runs eagerly.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from .kv_cache import BlockManager, OutOfBlocks
 from .paged_runtime import (PagedKVRuntime, apply_copies, bucket_size,
                             num_blocks_for)
 from .request import Sequence
+from .step_graphs import CudaGraph, StepGraphs, uncounted
 
 
 def make_real_backend(target: ModelAPI, draft: ModelAPI, **kw):
@@ -135,22 +145,36 @@ class RealBackend:
                                           temperature=temperature)
         self._ar = make_paged_ar_step(target, sampling=sampling,
                                       temperature=temperature)
+        # the pure-decode and spec steps' graphs: on the card, for greedy
+        # sampling (rejection sampling's generator is not registered with
+        # a graph)
+        self._graphs = (StepGraphs(CudaGraph, self.device,
+                                   max_batch=self.max_batch,
+                                   width=self.graph_width())
+                        if self.device.type == "cuda"
+                        and sampling == "greedy" else None)
+
+    def graph_width(self) -> int:
+        """The table width step graphs are made at: a table that holds a
+        full batch's even share of the pool, the context the pool is sized
+        for (``max_batch`` x the longest context), as a power of two."""
+        return bucket_size(-(-self.bm.total_blocks // self.max_batch))
 
     # ------------------------------------------------------------------
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(x).to(self.device)
 
     def _packed(self, model: str, run: int, valid: int,
-                rows: Optional[Tuple[np.ndarray, np.ndarray]] = None
-                ) -> None:
+                rows: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                **args) -> None:
         """End the caller's ``backend.pack`` span with the positions the
-        model call runs and the real ones among them, and open the call's
-        ``backend.dispatch``.  A target call passes its ``rows``, (start,
-        count) host arrays, whose K/V reads a target with sliding-window
-        layers counts (:meth:`_kv_reads`)."""
+        model call runs and the real ones among them and ``args``, and
+        open the call's ``backend.dispatch``.  A target call passes
+        its ``rows``, (start, count) host arrays, whose K/V reads a target
+        with sliding-window layers counts (:meth:`_kv_reads`)."""
         self.spans.switch("backend.dispatch", model=model,
                           positions_run=run, positions_valid=valid,
-                          **self._kv_reads(rows))
+                          **self._kv_reads(rows), **args)
 
     def _kv_reads(self, rows) -> dict:
         """The K/V positions that one full layer (``kv_read_full``) and one
@@ -168,14 +192,14 @@ class RealBackend:
                 "kv_read_window": int(np.minimum(start + n, n + W - 1)
                                       .sum())}
 
-    def _synced(self) -> None:
+    def _synced(self, graph: str = "eager") -> None:
         """The device synchronise that ends a dispatch, as its own
-        ``backend.sync`` span."""
+        ``backend.sync`` span; ``graph`` joins the dispatch's args."""
         sp = self.spans
         if sp is None:
             _device.synchronize(self.device)
             return
-        sp.switch("backend.sync")
+        sp.switch("backend.sync", graph=graph)
         _device.synchronize(self.device)
         sp.close()
 
@@ -231,12 +255,20 @@ class RealBackend:
             self.dparams, self.dkv.pages, *ops)
         self._synced()
 
+    def _drop_graphs(self, draft_only: bool) -> None:
+        """Drop the step graphs over tensors that move: the spec steps'
+        (gamma > 0) when only the draft's weights move, else all."""
+        if self._graphs is not None:
+            self._graphs.drop(lambda key: not draft_only or key[2] > 0)
+
     def offload_draft(self) -> None:
+        self._drop_graphs(draft_only=True)
         self.dparams_host = tree_to(self.dparams, "cpu")
         self.dparams = None
 
     def reload_draft(self) -> None:
         assert self.dparams_host is not None
+        self._drop_graphs(draft_only=True)
         self.dparams = tree_to(self.dparams_host, self.device)
 
     @property
@@ -347,6 +379,7 @@ class RealBackend:
     def grow_pools(self, extra_blocks: int) -> None:
         """§6.3: extend both physical paged pools in lockstep with
         ``BlockManager.expand`` (ElasticMemoryManager ``grow_fn``)."""
+        self._drop_graphs(draft_only=False)
         self.tkv.grow(extra_blocks)
         self.dkv.grow(extra_blocks)
 
@@ -354,6 +387,7 @@ class RealBackend:
         """§6.4 step 5: trim both pools after the logical contraction
         committed (ElasticMemoryManager ``shrink_fn``)."""
         nb = self.bm.base_blocks if to_blocks is None else to_blocks
+        self._drop_graphs(draft_only=False)
         self.tkv.shrink(nb)
         self.dkv.shrink(nb)
 
@@ -541,6 +575,79 @@ class RealBackend:
         return StepOutcome(n_committed=[1] * len(decode), latency=latency)
 
     # ------------------------------------------------------------------
+    def _padded_call(self, gamma: int, tables, lengths, last,
+                     positions=None) -> tuple:
+        """A pure-decode step's model call over device operands: the next
+        tokens (gamma = 0), or the spec step's committed tokens, accepted
+        counts and last tokens; the pages are written in place.
+        ``positions``: the draft chain's starts (``make_paged_spec_step``),
+        which a captured step takes as inputs."""
+        if gamma == 0:
+            nxt, self.tkv.pages = self._ar(self.gen, self.tparams,
+                                           self.tkv.pages, tables, lengths,
+                                           last)
+            return (nxt,)
+        res = self._spec(self.gen, self.tparams, self.dparams,
+                         self.tkv.pages, self.dkv.pages, tables, lengths,
+                         last, gamma, positions)
+        self.tkv.pages, self.dkv.pages = res.tcache, res.dcache
+        return res.tokens, res.n_accepted, res.last_token
+
+    def _graph_ptrs(self, gamma: int) -> Tuple[int, ...]:
+        """The addresses of every tensor a step of ``gamma`` reads or
+        writes besides its inputs: the target's parameters and pages, and
+        for gamma > 0 the draft's."""
+        trees = [self.tparams, self.tkv.pages]
+        if gamma:
+            trees += [self.dparams, self.dkv.pages]
+        out, todo = [], trees
+        while todo:
+            x = todo.pop()
+            if isinstance(x, dict):
+                todo.extend(x.values())
+            else:
+                out.append(x.data_ptr())
+        return tuple(out)
+
+    def _graph_inputs(self, tables, lengths, last, gamma: int) -> tuple:
+        """A captured step's host inputs: the tables (padded to the
+        graph's width by the caller), lengths, last tokens and, for gamma
+        > 0, the draft chain's starts N .. N + gamma."""
+        host = (tables, lengths, last.astype(np.int64))
+        if gamma:
+            host += (lengths[None] + np.arange(gamma + 1, dtype=np.int32)
+                     [:, None],)
+        return host
+
+    def capture_steps(self, gamma_max: int) -> None:
+        """Capture the step of each of the runner's batch buckets (1, 4,
+        16, ... up to ``max_batch``'s) and every gamma up to ``gamma_max``
+        (0 alone while the draft is offloaded) at the runner's width,
+        before serving: the engine calls
+        it when it is built.  One eager step over write-off tables warms
+        cuBLAS and the allocator first; neither it nor the captures add to
+        the launch counters.  A no-op without step graphs."""
+        g = self._graphs
+        if g is None:
+            return
+        gammas = range(gamma_max + 1 if self.dparams is not None else 1)
+
+        def inputs(Bb, gamma):
+            return self._graph_inputs(
+                np.full((Bb, g.width), self.tkv.trash, np.int32),
+                np.zeros((Bb,), np.int32), np.zeros((Bb,), np.int32), gamma)
+
+        with uncounted():
+            warm = [self._dev(a) for a in inputs(1, min(1, gammas[-1]))]
+            self._padded_call(min(1, gammas[-1]), *warm)
+            _device.synchronize(self.device)
+        for Bb in g.buckets:
+            for gamma in gammas:
+                g.capture((Bb, g.width, gamma), inputs(Bb, gamma),
+                          self._graph_ptrs(gamma),
+                          lambda *ops, gamma=gamma:
+                          self._padded_call(gamma, *ops))
+
     def step(self, seqs: List[Sequence], gamma: int) -> StepOutcome:
         if self.reserve(seqs, gamma):
             raise OutOfBlocks("decode batch not reserved — engine must "
@@ -551,31 +658,48 @@ class RealBackend:
         self._apply_pending_copies()
         if sp is not None:
             sp.switch("backend.pack")
-        Bb = bucket_size(len(seqs))
+        g = self._graphs
+        # graphs are captured at fewer batch buckets than eager steps run at
+        Bb = (bucket_size if g is None else g.bucket)(len(seqs))
         tables, lengths = self.tkv.batch_tables(seqs, Bb)
         last = np.zeros((Bb,), np.int32)
         for i, s in enumerate(seqs):
             last[i] = self.last_token[s.req_id]
 
         t0 = time.perf_counter()
-        tables_d, lengths_d = self._dev(tables), self._dev(lengths)
-        last_d = self._dev(last).long()
+        if g is None:
+            mode = "eager"
+            ops = (self._dev(tables), self._dev(lengths),
+                   self._dev(last).long())
+        else:
+            key = g.key(len(seqs), tables.shape[1], gamma)
+            mode = "replay" if g.captured(key) else "capture"
+            # a wider graph's tables: the rest of each row is the
+            # write-off block, which no position below a length reaches
+            tables = np.pad(tables, ((0, 0), (0, key[1] - tables.shape[1])),
+                            constant_values=self.tkv.trash)
+            entry = g.load(key, self._graph_inputs(tables, lengths, last,
+                                                   gamma))
         if sp is not None:
             # a gamma > 0 step runs the draft chain and the target's verify
-            # each over Bb x (gamma + 1) positions
+            # each over Bb x (gamma + 1) positions; ``starts``: each real
+            # row's context, from which a reader counts what a replayed
+            # call's kernels read
+            starts = [self.tkv.ctx[s.req_id] for s in seqs]
             self._packed("target" if gamma == 0 else "spec",
                          Bb * (gamma + 1), len(seqs) * (gamma + 1),
-                         ([self.tkv.ctx[s.req_id] for s in seqs],
-                          [gamma + 1] * len(seqs)))
+                         (starts, [gamma + 1] * len(seqs)), starts=starts)
+        if g is None:
+            outs = self._padded_call(gamma, *ops)
+        else:
+            outs = g.run(entry, self._graph_ptrs(gamma),
+                         lambda *ops: self._padded_call(gamma, *ops))
+        self._synced(mode)
+        latency = time.perf_counter() - t0
+        if sp is not None:
+            sp.open("backend.unpack")
         if gamma == 0:
-            nxt, self.tkv.pages = self._ar(self.gen, self.tparams,
-                                           self.tkv.pages, tables_d,
-                                           lengths_d, last_d)
-            self._synced()
-            latency = time.perf_counter() - t0
-            if sp is not None:
-                sp.open("backend.unpack")
-            nxt = nxt.cpu().numpy()
+            nxt = outs[0].cpu().numpy()
             n_committed = []
             for i, s in enumerate(seqs):
                 self.tokens_out[s.req_id].append(int(nxt[i]))
@@ -586,17 +710,7 @@ class RealBackend:
                 sp.close()
             return StepOutcome(n_committed=n_committed, latency=latency)
 
-        res = self._spec(self.gen, self.tparams, self.dparams,
-                         self.tkv.pages, self.dkv.pages, tables_d, lengths_d,
-                         last_d, gamma)
-        self._synced()
-        latency = time.perf_counter() - t0
-        if sp is not None:
-            sp.open("backend.unpack")
-        self.tkv.pages, self.dkv.pages = res.tcache, res.dcache
-        toks = res.tokens.cpu().numpy()
-        n_acc = res.n_accepted.cpu().numpy()
-        last_np = res.last_token.cpu().numpy()
+        toks, n_acc, last_np = (t.cpu().numpy() for t in outs)
         n_committed = []
         for i, s in enumerate(seqs):
             committed = [int(t) for t in toks[i] if t >= 0]

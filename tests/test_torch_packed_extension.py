@@ -223,6 +223,7 @@ def test_pack_counter_reads_no_padding_in_a_mixed_step():
     d = _seq(9, 6, cfg.vocab_size)
     step(be.hybrid_step, [(d, 6)], [a, b, c], 0, with_draft=True)
     step(be.draft_catchup, [a, b, c])
+    starts = [be.tkv.ctx[s.req_id] for s in (a, b, c)]
     step(be.step, [a, b, c], 2)
     packs = [e["args"] for e in rec.events if e["name"] == "backend.pack"]
     assert packs == [
@@ -232,5 +233,7 @@ def test_pack_counter_reads_no_padding_in_a_mixed_step():
         {"model": "draft", "positions_run": 6, "positions_valid": 6},
         # the catch-up: A and B two tokens behind the target, C one
         {"model": "draft", "positions_run": 5, "positions_valid": 5},
-        # gamma = 2 over three rows padded to four
-        {"model": "spec", "positions_run": 12, "positions_valid": 9}]
+        # gamma = 2 over three rows padded to four, with each row's
+        # context
+        {"model": "spec", "positions_run": 12, "positions_valid": 9,
+         "starts": starts}]
